@@ -1,0 +1,362 @@
+"""Scale-image pyramid detector (torch; CUDA kernels on the card).
+
+Port of ``clfacedetection_tpu/detect/pyramid.py``: OpenCV's
+CV_HAAR_SCALE_IMAGE mode (tempcv.cpp:1257-1328, 989-1113).  All pyramid
+levels are resized with the pinned fixed-point bilinear resize and packed
+into ONE canvas (``PyramidPlan``, numpy); one integral pass serves every
+level, and a static visit lattice keeps every window inside its level.
+
+Per batch of frames the device pipeline is
+
+    canvas + integrals (plain torch) -> dense front (kernel)
+    -> survivor compaction (kernel) -> survivor tail (kernel)
+    -> accept compaction (kernel) -> ONE packed int32 readback
+       [n_surv, n_acc, acc_y[acap], acc_x[acap]] per frame
+
+with no host synchronisation inside it.  This slice covers stump
+cascades with upright features and sequential stages (eye,
+frontalface_alt, frontalface_default, profileface).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.compile import (compile_cascade, cv_round, scale_factors,
+                              truncate_cascade)
+from ..models.spec import CascadeSpec
+from ..ops.compact_kernel import compact, compact_plain
+from ..ops.haar_front import front_plain, haar_front
+from ..ops.haar_tail2 import haar_tail2, tail2_plain
+from ..ops.integral import integral_images
+from ..ops.resize import resize_bilinear_u8, resize_plan
+from ..ops.stump_table import StumpTable
+from .detector import DetectionResult, _build_clf_tables
+from .grouping import group_rectangles
+
+__all__ = ["PyramidDetector", "PyramidPlan", "default_device"]
+
+ACCEPT_CAP = 4096   # accepted windows read back per frame in one array
+
+
+def default_device() -> torch.device:
+    """The card when there is one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Level:
+    factor: float
+    h: int
+    w: int
+    oy: int          # canvas row offset
+    ox: int          # canvas column offset
+    ystep: int       # 1 if factor > 2 else 2
+    win_w: int       # cvRound(w0 * factor): output box size
+    win_h: int
+
+
+def _pack_levels(dims: List[Tuple[int, int]], cw: int,
+                 quantum: int = 8) -> Tuple[List[Tuple[int, int]], int]:
+    """First-fit occupancy-grid packing of ``(h, w)`` rectangles into a
+    strip of width ``cw`` on a ``quantum``-aligned grid; returns offsets
+    and the used height."""
+    if not dims:
+        return [], 1
+    gq = quantum
+    gw = max(1, cw // gq)
+    gh = (sum(h for h, _ in dims) + gq - 1) // gq + 1
+    occ = np.zeros((gh, gw), np.int32)
+    offsets: List[Tuple[int, int]] = []
+    used_h = 0
+    for h, w in dims:
+        ch = -(-h // gq)
+        cw_ = min(-(-w // gq), gw)
+        ii = np.zeros((gh + 1, gw + 1), np.int64)
+        ii[1:, 1:] = occ.cumsum(0).cumsum(1)
+        ys = gh - ch + 1
+        xs = gw - cw_ + 1
+        free = (ii[ch:ch + ys, cw_:cw_ + xs] - ii[:ys, cw_:cw_ + xs]
+                - ii[ch:ch + ys, :xs] + ii[:ys, :xs]) == 0
+        gy, gx = np.argwhere(free)[0]
+        occ[gy:gy + ch, gx:gx + cw_] = 1
+        offsets.append((int(gy) * gq, int(gx) * gq))
+        used_h = max(used_h, int(gy) * gq + h)
+    return offsets, max(used_h, 1)
+
+
+@dataclasses.dataclass
+class PyramidPlan:
+    """Host-side static geometry of the packed pyramid (numpy)."""
+
+    levels: List[_Level]
+    canvas_h: int
+    canvas_w: int
+
+    @classmethod
+    def build(cls, spec: CascadeSpec, image_shape: Tuple[int, int],
+              scale_factor: float, min_size: Tuple[int, int],
+              max_size: Optional[Tuple[int, int]]) -> "PyramidPlan":
+        H, W = image_shape
+        factors = scale_factors(spec.window_w, spec.window_h, W, H,
+                                scale_factor, min_size, max_size)
+        dims = [(int(cv_round(H / f)), int(cv_round(W / f)))
+                for f in factors]
+        if not dims:
+            return cls(levels=[], canvas_h=1, canvas_w=1)
+        # the strip width that minimises the (32, 256)-padded grid area,
+        # as the JAX plan chooses it, so both packages share one canvas
+        w_max = max(w for _, w in dims)
+        best = None
+        cands = {-(-(base + 1) // 256) * 256 - 1
+                 for base in (w_max, w_max * 3 // 2, 2 * w_max)}
+        cands.add(-(-(w_max + 1) // 256) * 256 + 255)
+        for cw_cand in cands:
+            if cw_cand < w_max:
+                continue
+            offs, hh = _pack_levels(dims, cw_cand)
+            grid_area = (-(-(hh + 1) // 32) * 32) * \
+                (-(-(cw_cand + 1) // 256) * 256)
+            if best is None or grid_area < best[0]:
+                best = (grid_area, cw_cand, offs, hh)
+        _, cw, offsets, used_h = best
+        levels = [
+            _Level(factor=f, h=h, w=w, oy=oy, ox=ox,
+                   ystep=1 if f > 2 else 2,
+                   win_w=int(cv_round(spec.window_w * f)),
+                   win_h=int(cv_round(spec.window_h * f)))
+            for f, (h, w), (oy, ox) in zip(factors, dims, offsets)]
+        return cls(levels=levels, canvas_h=used_h, canvas_w=cw)
+
+    def visit_mask(self, w0: int, h0: int) -> np.ndarray:
+        """Static scan lattice on the canvas (tempcv.cpp:1015-1020,1092)."""
+        m = np.zeros((self.canvas_h + 1, self.canvas_w + 1), bool)
+        for lv in self.levels:
+            y2, x2 = lv.h - h0, lv.w - w0
+            if y2 <= 0 or x2 <= 0:
+                continue
+            ys = np.arange(0, y2, lv.ystep)
+            xs = np.arange(0, x2, lv.ystep)
+            m[np.ix_(lv.oy + ys, lv.ox + xs)] = True
+        return m
+
+    def _level_map(self) -> np.ndarray:
+        lm = getattr(self, "_lm", None)
+        if lm is None:
+            lm = np.full((self.canvas_h + 1, self.canvas_w + 1), -1,
+                         np.int16)
+            for i, lv in enumerate(self.levels):
+                lm[lv.oy:lv.oy + lv.h, lv.ox:lv.ox + lv.w] = i
+            self._lm = lm
+        return lm
+
+    def boxes_for(self, cy: np.ndarray, cx: np.ndarray) -> np.ndarray:
+        """Canvas scan positions -> original-image boxes
+        (Rect(cvRound(x*f), cvRound(y*f), winW, winH), tempcv.cpp:1096)."""
+        cy = np.asarray(cy, np.int64)
+        cx = np.asarray(cx, np.int64)
+        idx = self._level_map()[cy, cx].astype(np.int64)
+        f = np.array([lv.factor for lv in self.levels])
+        oy = np.array([lv.oy for lv in self.levels])
+        ox = np.array([lv.ox for lv in self.levels])
+        ww = np.array([lv.win_w for lv in self.levels], np.int32)
+        wh = np.array([lv.win_h for lv in self.levels], np.int32)
+        out = np.empty((len(cy), 4), np.int32)
+        out[:, 0] = cv_round((cx - ox[idx]) * f[idx])
+        out[:, 1] = cv_round((cy - oy[idx]) * f[idx])
+        out[:, 2] = ww[idx]
+        out[:, 3] = wh[idx]
+        return out
+
+
+class PyramidDetector:
+    """Scale-image detector for one (cascade, frame shape) pair.
+
+    ``device`` is where the pipeline runs (default: the card when there is
+    one).  On a CUDA device the front, compaction and tail run as CUDA
+    kernels in float32; on the CPU their plain PyTorch versions run, in
+    float32 or float64.  ``cap`` is the survivor slot count per frame; it
+    grows 4x while a frame overflows it (``candidates``/``detect``)."""
+
+    def __init__(self, spec: CascadeSpec, image_shape: Tuple[int, int],
+                 scale_factor: float = 1.1,
+                 min_size: Tuple[int, int] = (0, 0),
+                 max_size: Optional[Tuple[int, int]] = None,
+                 front_stages: int = 4,
+                 cap: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 max_stages: Optional[int] = None,
+                 device=None):
+        self.spec = spec
+        self.H, self.W = int(image_shape[0]), int(image_shape[1])
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+        if self.device.type == "cuda" and dtype != torch.float32:
+            raise NotImplementedError(
+                "float64 runs on the CPU only: the CUDA kernels are float32 "
+                "(as the JAX package's Pallas path is)")
+        self.dtype = dtype
+        c = compile_cascade(spec)
+        if max_stages is not None:
+            c = truncate_cascade(c, max_stages)
+        self.compiled = c
+        self.n_stages = c.spec.n_stages
+        if c.is_tree:
+            raise NotImplementedError(
+                "stage-tree cascades are not ported yet (ROADMAP Queue 2: "
+                "v1 tail)")
+        if not c.is_stump_based:
+            raise NotImplementedError(
+                "CART cascades are not ported yet (ROADMAP Queue 2: front "
+                "CART branch and v1 tail)")
+        if c.has_tilted:
+            raise NotImplementedError(
+                "tilted features are not ported yet (ROADMAP Queue 2: "
+                "tilted RSAT, front tilted branch and v1 tail)")
+        self.front_k = max(1, min(front_stages, self.n_stages))
+        self.plan = PyramidPlan.build(spec, image_shape, scale_factor,
+                                      min_size, max_size)
+        self.n_levels = len(self.plan.levels)
+        if self.n_levels == 0:
+            return
+
+        w0, h0 = spec.window_w, spec.window_h
+        self.w0, self.h0 = w0, h0
+        self.hv, self.wv = self.plan.canvas_h + 1, self.plan.canvas_w + 1
+        tables = _build_clf_tables(c, [1.0])
+        sc1 = c.at_scale(1.0)
+        self.table = StumpTable.build(c, tables, sc1.equ_corner_y,
+                                      sc1.equ_corner_x, sc1.inv_area)
+        vm = self.plan.visit_mask(w0, h0)
+        self.n_visit = int(vm.sum())
+        if cap is None:
+            cap = int(2 ** np.ceil(np.log2(
+                min(max(self.n_visit // 16, 256), 16384))))
+        self.cap = min(int(cap), max(self.n_visit, 1))
+        # the XLA path's plane pad: every window corner stays in the plane
+        self._pad = w0 + h0 + 4
+        dev = self.device
+        self._visit = torch.from_numpy(vm).to(dev)
+        self._resize = {
+            i: resize_plan((self.H, self.W), (lv.h, lv.w), dev)
+            for i, lv in enumerate(self.plan.levels)
+            if (lv.h, lv.w) != (self.H, self.W)}
+
+    # ------------------------------------------------------------- prep
+    def _assemble_canvas(self, frames: torch.Tensor) -> torch.Tensor:
+        """[B, H, W] uint8 -> [B, canvas_h, canvas_w] uint8."""
+        plan = self.plan
+        canvas = torch.zeros((frames.shape[0], plan.canvas_h, plan.canvas_w),
+                             dtype=torch.uint8, device=frames.device)
+        for i, lv in enumerate(plan.levels):
+            lvl = (frames if i not in self._resize else
+                   resize_bilinear_u8(frames, (lv.h, lv.w), self._resize[i]))
+            canvas[:, lv.oy:lv.oy + lv.h, lv.ox:lv.ox + lv.w] = lvl
+        return canvas
+
+    def _prep_planes(self, frames: torch.Tensor):
+        """Canvas, integral planes, zero pad: (sum, sq_hi, sq_lo), each
+        int32 [B, Hv + pad, Wv + pad]."""
+        return integral_images(self._assemble_canvas(frames), self._pad)
+
+    # --------------------------------------------------------- pipeline
+    def _detect_device(self, frames: torch.Tensor, cap: int,
+                       plain: bool = False) -> Dict[str, torch.Tensor]:
+        """The device pipeline over [B, H, W] uint8 frames on
+        ``self.device``; no host synchronisation.  ``plain`` runs the
+        plain PyTorch versions of the kernels on the same device (the
+        reference a card run is checked against)."""
+        front_fn = front_plain if plain else haar_front
+        compact_fn = compact_plain if plain else compact
+        tail_fn = tail2_plain if plain else haar_tail2
+        B = frames.shape[0]
+        s, hi, lo = self._prep_planes(frames)
+        front, vnf = front_fn(s, hi, lo, self._visit, self.table,
+                              self.front_k, self.dtype)
+        surv_idx, n_surv = compact_fn(front.reshape(B, -1), cap)
+        rows = tail_fn(s, vnf, surv_idx, self.table, self.front_k)
+        ok = rows[..., 1] > 0
+        acap = min(cap, ACCEPT_CAP)
+        acc, n_acc = compact_fn(ok, acap)
+        acc_flat = surv_idx.gather(1, torch.where(acc < cap, acc, 0).long())
+        acc_y = torch.div(acc_flat, self.wv, rounding_mode="floor")
+        packed = torch.cat([n_surv[:, None], n_acc[:, None], acc_y,
+                            acc_flat - acc_y * self.wv], dim=1)
+        return dict(packed=packed, surv_idx=surv_idx, ok=ok)
+
+    def put(self, frames) -> torch.Tensor:
+        """[B, H, W] (or [H, W]) uint8 -> a [B, H, W] tensor on the
+        detector's device."""
+        t = torch.as_tensor(np.asarray(frames, np.uint8)) \
+            if not isinstance(frames, torch.Tensor) else frames
+        if t.dtype != torch.uint8:
+            raise ValueError(f"frames must be uint8, got {t.dtype}")
+        if t.ndim == 2:
+            t = t[None]
+        if tuple(t.shape[1:]) != (self.H, self.W):
+            raise ValueError(f"frames of shape {tuple(t.shape)} do not match "
+                             f"the detector's {(self.H, self.W)}")
+        return t.to(self.device).contiguous()
+
+    def readback(self, dev: Dict[str, torch.Tensor], cap: int,
+                 ) -> List[Tuple[np.ndarray, bool]]:
+        """(candidates, overflow) per frame from a pipeline result: ONE
+        packed readback, plus a second only when a frame accepted more
+        than ``ACCEPT_CAP`` windows (pyramid.py:1239-1243)."""
+        packed = dev["packed"].cpu().numpy()
+        acap = (packed.shape[1] - 2) // 2
+        full = None
+        out = []
+        for b, p in enumerate(packed):
+            overflow = bool(p[0] > cap)
+            n_acc = int(p[1])
+            if n_acc <= acap:
+                ay, ax = p[2:2 + n_acc], p[2 + acap:2 + acap + n_acc]
+            else:
+                if full is None:
+                    full = (dev["surv_idx"].cpu().numpy(),
+                            dev["ok"].cpu().numpy())
+                flat = full[0][b][full[1][b]]
+                ay, ax = flat // self.wv, flat % self.wv
+            cand = (self.plan.boxes_for(ay, ax) if len(ay)
+                    else np.zeros((0, 4), np.int32))
+            out.append((cand, overflow))
+        return out
+
+    # ------------------------------------------------------------------
+    def candidates(self, gray) -> Tuple[np.ndarray, bool]:
+        """Raw candidates (x, y, w, h) in original-image coordinates and
+        whether the survivor cap overflowed."""
+        if self.n_levels == 0:
+            return np.zeros((0, 4), np.int32), False
+        frames = self.put(gray)
+        if frames.shape[0] != 1:
+            raise ValueError("candidates takes one frame; batch with "
+                             "BatchedPyramidDetector")
+        res = self.readback(self._detect_device(frames, self.cap), self.cap)
+        while res[0][1] and self.cap < self.n_visit:
+            self.cap = min(self.cap * 4, self.n_visit)
+            res = self.readback(self._detect_device(frames, self.cap),
+                                self.cap)
+        return res[0]
+
+    def detect(self, gray, min_neighbors: int = 3) -> DetectionResult:
+        cand, overflow = self.candidates(gray)
+        return finish(cand, overflow, min_neighbors)
+
+
+def finish(cand: np.ndarray, overflow: bool,
+           min_neighbors: int) -> DetectionResult:
+    """Group one frame's candidates into a ``DetectionResult``."""
+    if min_neighbors != 0:
+        boxes, neigh = group_rectangles(cand, max(min_neighbors, 1), eps=0.2)
+    else:
+        boxes, neigh = cand, np.ones(len(cand), np.int32)
+    return DetectionResult(boxes=boxes, neighbors=neigh, candidates=cand,
+                           survivor_overflow=overflow)

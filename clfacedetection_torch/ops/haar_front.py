@@ -1,0 +1,157 @@
+"""Dense front-stage Haar evaluation: CUDA kernel and its plain twin.
+
+Port of the TPU kernel ``clfacedetection_tpu/ops/haar_front.py``
+(``build_front_kernel``) and of its XLA specification
+``PyramidDetector._front_from_planes`` / ``_front_maps``
+(``pyramid.py:556-605,1015-1043``).  For every canvas position: the
+variance factor ``vnf`` over the ``equ`` rect, then stages
+``0..front_k-1`` (votes ``node < thr * vnf``, sequential stage sums,
+``>= stage_thr``), ANDed with the static visit lattice.
+
+``haar_front`` runs ``csrc/haar_front.cu`` on a CUDA tensor and
+``front_plain`` on a CPU tensor.  ``front_plain`` is the specification:
+the same float32 operation order as the JAX XLA path, so the mask and
+``vnf`` are bit-equal to JAX's and to the kernel's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .stump_table import StumpTable
+
+__all__ = ["haar_front", "front_plain", "front_votes_plain", "vnf_plain"]
+
+
+def _rect(p: torch.Tensor, ya: int, xa: int, yb: int, xb: int,
+          hv: int, wv: int) -> torch.Tensor:
+    """Rect sum at every position from four shifted slices (int32)."""
+    return (p[:, ya:ya + hv, xa:xa + wv] - p[:, ya:ya + hv, xb:xb + wv]
+            - p[:, yb:yb + hv, xa:xa + wv] + p[:, yb:yb + hv, xb:xb + wv])
+
+
+def vnf_plain(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
+              table: StumpTable, hv: int, wv: int,
+              dtype=torch.float32) -> torch.Tensor:
+    """Variance factor map [B, hv, wv].
+
+    float32: ``var = fma(win_sq, inv, -(mean*mean))`` rounded once, which
+    is what XLA:CPU computes for ``win_sq*inv - mean*mean``.  The fma is
+    emulated in float64, where the product of two float32 values is
+    exact; the second rounding to float32 could in principle differ from
+    a true fma on a rounding tie.  float64: separately rounded, with the
+    unrounded ``inv_area`` (the JAX f64 path's constant)."""
+    ya, xa, yb, xb = table.equ
+    win_sum = _rect(sum_, ya, xa, yb, xb, hv, wv).to(dtype)
+    hi = _rect(sq_hi, ya, xa, yb, xb, hv, wv).to(dtype)
+    lo = _rect(sq_lo, ya, xa, yb, xb, hv, wv).to(dtype)
+    win_sq = hi * 256.0 + lo
+    if dtype == torch.float32:
+        inv = float(np.float32(table.inv_area))
+        mean = win_sum * inv
+        var = (win_sq.double() * inv - (mean * mean).double()).float()
+        # torch.sqrt on float32 CPU tensors is not correctly rounded (it
+        # differs from IEEE sqrt in ~0.7% of values); in float64 then
+        # rounded to float32 it is, like the kernel's __fsqrt_rn
+        root = torch.sqrt(var.double().clamp(min=0)).float()
+    else:
+        inv = table.inv_area
+        mean = win_sum * inv
+        var = win_sq * inv - mean * mean
+        root = torch.sqrt(var.clamp(min=0))
+    return torch.where(var >= 0, root, torch.ones_like(var))
+
+
+def _stage_sum_dense(p: torch.Tensor, table: StumpTable, st: int,
+                     vnf: torch.Tensor, hv: int, wv: int) -> torch.Tensor:
+    """Stage sum at every position: node values in rect order, votes,
+    and a sequential sum in classifier order from 0 (pyramid.py:568-605)."""
+    dtype = vnf.dtype
+    n0, cnt = int(table.stage_node0[st]), int(table.stage_cnt[st])
+    ssum = torch.zeros_like(vnf)
+    for node in range(n0, n0 + cnt):
+        nv = None
+        for k in range(int(table.n_rects[node])):
+            rs = _rect(p, *(int(v) for v in table.rects[node, k]),
+                       hv, wv).to(dtype)
+            term = rs * float(table.weights[node, k])
+            nv = term if nv is None else nv + term
+        if nv is None:
+            nv = torch.zeros_like(vnf)
+        cond = nv < float(table.thr[node]) * vnf
+        vote = torch.full_like(vnf, float(table.a_left[node])).where(
+            cond, float(table.a_right[node]))
+        ssum = ssum + vote
+    return ssum
+
+
+def front_plain(sum_: torch.Tensor, sq_hi: torch.Tensor,
+                sq_lo: torch.Tensor, visit: torch.Tensor, table: StumpTable,
+                front_k: int, dtype=torch.float32):
+    """(front bool [B, Hv, Wv], vnf [B, Hv, Wv]) from padded planes
+    [B, Hp, Wp]; ``visit`` is the [Hv, Wv] scan lattice."""
+    hv, wv = visit.shape
+    vnf = vnf_plain(sum_, sq_hi, sq_lo, table, hv, wv, dtype)
+    return front_votes_plain(sum_, visit, table, front_k, vnf), vnf
+
+
+def front_votes_plain(sum_: torch.Tensor, visit: torch.Tensor,
+                      table: StumpTable, front_k: int,
+                      vnf: torch.Tensor) -> torch.Tensor:
+    """The front mask for a given vnf map: visit AND stages 0..front_k-1."""
+    hv, wv = visit.shape
+    front = visit.unsqueeze(0).expand(sum_.shape[0], hv, wv).clone()
+    for st in range(front_k):
+        ssum = _stage_sum_dense(sum_, table, st, vnf, hv, wv)
+        front &= ssum >= float(table.stage_thr[st])
+    return front
+
+
+def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
+               visit: torch.Tensor, table: StumpTable, front_k: int,
+               dtype=torch.float32):
+    """Front mask and vnf map.  CPU tensors run ``front_plain``; CUDA
+    tensors launch the kernel (float32 only)."""
+    planes = (sum_, sq_hi, sq_lo)
+    if any(p.dtype != torch.int32 or p.ndim != 3 or not p.is_contiguous()
+           or p.shape != sum_.shape or p.device != sum_.device
+           for p in planes):
+        raise ValueError("planes must be contiguous int32 [B, Hp, Wp] "
+                         "tensors of one shape on one device")
+    if visit.dtype != torch.bool or visit.ndim != 2 \
+            or not visit.is_contiguous() or visit.device != sum_.device:
+        raise ValueError("visit must be a contiguous bool [Hv, Wv] tensor "
+                         "on the planes' device")
+    hv, wv = visit.shape
+    B, hp, wp = sum_.shape
+    if hp < hv + table.max_dy or wp < wv + table.max_dx:
+        raise ValueError(f"planes {hp}x{wp} too small for a {hv}x{wv} "
+                         f"grid plus the window")
+    if not 0 <= front_k <= table.n_stages:
+        raise ValueError(f"front_k {front_k} outside [0, {table.n_stages}]")
+    if sum_.device.type == "cpu":
+        return front_plain(sum_, sq_hi, sq_lo, visit, table, front_k, dtype)
+    if sum_.device.type != "cuda":
+        raise ValueError(f"unsupported device {sum_.device}")
+    if dtype != torch.float32:
+        raise NotImplementedError("the CUDA front runs in float32 only")
+    front = torch.empty((B, hv, wv), dtype=torch.bool, device=sum_.device)
+    vnf = torch.empty((B, hv, wv), dtype=torch.float32, device=sum_.device)
+    tab = table.device_buffer(sum_.device)
+    ya, xa, yb, xb = table.equ
+    err = kernels.lib().clfd_haar_front(
+        sum_.data_ptr(), sq_hi.data_ptr(), sq_lo.data_ptr(),
+        visit.data_ptr(), tab.data_ptr(), front.data_ptr(), vnf.data_ptr(),
+        B, hv, wv, hp, wp, table.n_stages, front_k, ya, xa, yb, xb,
+        ctypes.c_float(float(np.float32(table.inv_area))),
+        torch.cuda.current_stream(sum_.device).cuda_stream)
+    kernels.check("clfd_haar_front", err)
+    haar_front.launches += 1
+    return front, vnf
+
+
+haar_front.launches = 0

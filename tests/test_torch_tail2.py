@@ -1,0 +1,107 @@
+"""The port's survivor tail (plain twin of csrc/haar_tail2.cu) against the
+JAX XLA tail ``PyramidDetector._tail_device_xla`` built with
+``output_levels=True``, on the same survivors and vnf map.
+
+Tolerances: the JAX tail sums a stage's votes with ``jnp.sum`` over node
+values from a matrix product; the port sums them sequentially from
+four-corner node values.  Stage sums ("weight") may therefore differ in
+their last bits: rtol 1e-5, atol 1e-6 (a few float32 ulps of sums of at
+most 213 alphas of magnitude < 2), for all but 0.5% of survivors.  A node value within float32 noise of
+``thr * vnf`` can also vote the other way, so alive and exit stage are
+held to the docs/PARITY.md f32 bound: alive-set Jaccard >= 0.995 and at
+most 0.5% of survivors with another exit stage (on these scenes 0-2
+windows of 2,000-8,000 differ).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clfacedetection_tpu.detect.pyramid import PyramidDetector as JDet
+from clfacedetection_tpu.models import load_cascade as j_load_cascade
+from clfacedetection_tpu.utils import synth_face, synth_scene
+
+from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
+from clfacedetection_torch.models import load_cascade as t_load_cascade
+from clfacedetection_torch.ops import haar_tail2 as ttail
+
+# The suite runs in several worker processes at once; one torch thread
+# each keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
+CASES = [
+    ("haarcascade_frontalface_alt", 4, "face"),
+    ("haarcascade_frontalface_alt", 3, "scene"),
+    ("haarcascade_frontalface_default", 3, "face"),
+    ("haarcascade_eye", 3, "scene"),
+    ("haarcascade_profileface", 3, "scene"),
+]
+
+
+@pytest.mark.parametrize("name,front_k,kind", CASES)
+def test_tail2_equals_jax_xla_tail(name, front_k, kind):
+    shape = (120, 160)
+    frame = synth_face(shape) if kind == "face" else synth_scene(
+        shape, faces=((60, 80, 40.0),), seed=9)
+    jd = JDet(j_load_cascade(name), shape, front_stages=front_k,
+              dtype=jnp.float32, output_levels=True, use_pallas_front=False,
+              cap=8192)
+    f = jax.jit(jd._front_device)(jnp.asarray(frame))
+    surv, n_surv = jax.jit(jd._compact_device)(f["front"])
+    assert 0 < int(n_surv) <= jd.cap
+    jt = jax.jit(jd._tail_device_xla)(f["planes"], f["vnf"], surv, n_surv)
+
+    td = TDet(t_load_cascade(name), shape, front_stages=jd.front_k,
+              device="cpu")
+    assert td.front_k == jd.front_k
+    s, _, _ = td._prep_planes(torch.from_numpy(frame)[None])
+    vnf = torch.from_numpy(np.array(f["vnf"]))[None]
+    surv_t = torch.from_numpy(np.array(surv, np.int32))[None]
+    launches = ttail.haar_tail2.launches
+    rows = ttail.haar_tail2(s, vnf, surv_t, td.table, td.front_k)[0]
+    assert ttail.haar_tail2.launches == launches        # CPU: plain twin
+    assert rows.shape == (jd.cap, 4) and rows.dtype == torch.float32
+
+    n = int(n_surv)
+    alive = rows[:n, 1].numpy() > 0
+    ok = np.asarray(jt["ok"])[:n]
+    jl = np.asarray(jt["level"])[:n]
+    pl = rows[:n, 2].numpy().astype(np.int32)
+    assert ok.any() or (jl < jd.n_stages).all()
+    union = (alive | ok).sum()
+    assert union == 0 or (alive & ok).sum() / union >= 0.995
+    # a window whose node value lies within float32 noise of thr * vnf can
+    # vote the other way (the JAX tail's matrix-product node values are not
+    # the JAX front's either: where JAX level < front_k its tail fails a
+    # stage its own front passed); such windows stay under the PARITY rate
+    same = pl == jl
+    assert same.mean() >= 0.995, f"{(~same).sum()} of {n} levels differ"
+    # a flipped vote inside the exit stage moves its sum by an alpha
+    close = np.isclose(rows[:n, 3].numpy(), np.asarray(jt["weight"])[:n],
+                       rtol=1e-5, atol=1e-6)
+    assert (close & same).mean() >= 0.995
+    # vnf lane: the survivor's own vnf; pad slots are (0, 0, n_stages, 0)
+    flat = np.asarray(f["vnf"]).reshape(-1)
+    np.testing.assert_array_equal(rows[:n, 0].numpy(),
+                                  flat[np.asarray(surv)[:n]])
+    pad = rows[n:].numpy()
+    np.testing.assert_array_equal(
+        pad, np.tile(np.float32([0, 0, jd.n_stages, 0]), (len(pad), 1)))
+
+
+def test_tail2_float64_on_cpu():
+    name, shape = "haarcascade_frontalface_alt", (120, 160)
+    td = TDet(t_load_cascade(name), shape, front_stages=3, max_stages=10,
+              dtype=torch.float64, device="cpu")
+    s, hi, lo = td._prep_planes(torch.from_numpy(synth_face(shape))[None])
+    from clfacedetection_torch.ops.haar_front import front_plain
+    front, vnf = front_plain(s, hi, lo, td._visit, td.table, td.front_k,
+                             torch.float64)
+    idx = torch.nonzero(front.reshape(-1))[:, 0].to(torch.int32)[None]
+    rows = ttail.haar_tail2(s, vnf, idx, td.table, td.front_k)
+    assert rows.dtype == torch.float64
+    rows32 = ttail.haar_tail2(s, vnf.float(), idx, td.table, td.front_k)
+    agree = (rows[0, :, 1] == rows32[0, :, 1]).double().mean()
+    assert agree >= 0.995
