@@ -5,10 +5,20 @@
 
 Builds the CUDA kernels from ``clfacedetection_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at the 1080p shapes
-of frontalface_alt with the headline settings (scaleFactor 1.1, minSize
-40x40, minNeighbors 3, front_stages 10, cap 20480), drives the main path
-(``PyramidDetector.detect`` and ``BatchedPyramidDetector.detect_stream``)
-and times the kernel path against the plain path with CUDA events.
+of the headline settings (scaleFactor 1.1, minSize 40x40, minNeighbors 3,
+front_stages 10, cap 20480), drives the main paths through the entry
+points and times kernels and paths with CUDA events:
+
+* tail2's path: frontalface_alt (stumps, upright): front, compaction and
+  tail2 kernels, ``PyramidDetector.detect``, a VGA frame against the CPU,
+  a batch-8 ``detect_stream`` against single frames;
+* the v1 tail's path: frontalface_alt2 (CART), eye_tree_eyeglasses (CART
+  of three nodes, tilted) and frontalface_alt_tree (stage tree): the front
+  with its CART and tilted branches and the v1 tail kernel bit-equal to
+  their plain versions, ``detect`` equal to the plain path on the card;
+  ``strategy="block"`` on frontalface_alt equal to the per-stage path; a
+  VGA sweep of the 15 cascades this path serves against the CPU; a
+  batch-8 ``detect_stream`` of frontalface_alt2 against single frames.
 
 Each phase prints one line; the line before the last is the JSON record
 of the kernels, the last ``{"ok": true, "device": {...}}``.  Any failure
@@ -42,7 +52,27 @@ KERNELS = [
      "clfacedetection_tpu/ops/compact_kernel.py:37"),
     ("haar_tail2", "clfacedetection_torch/csrc/haar_tail2.cu",
      "clfacedetection_tpu/ops/haar_tail2.py:137"),
+    ("haar_tail", "clfacedetection_torch/csrc/haar_tail.cu",
+     "clfacedetection_tpu/ops/haar_tail.py:116"),
 ]
+V1_CASCADES = ("haarcascade_frontalface_alt2",
+               "haarcascade_eye_tree_eyeglasses",
+               "haarcascade_frontalface_alt_tree")
+# the cascades that tail2 refuses and the v1 tail serves
+V1_SERVED = (
+    "haarcascade_eye_tree_eyeglasses", "haarcascade_frontalface_alt2",
+    "haarcascade_frontalface_alt_tree", "haarcascade_fullbody",
+    "haarcascade_lefteye_2splits", "haarcascade_lowerbody",
+    "haarcascade_mcs_eyepair_big", "haarcascade_mcs_eyepair_small",
+    "haarcascade_mcs_lefteye", "haarcascade_mcs_mouth", "haarcascade_mcs_nose",
+    "haarcascade_mcs_righteye", "haarcascade_mcs_upperbody",
+    "haarcascade_righteye_2splits", "haarcascade_upperbody")
+SWEEP_KNOBS = dict(scale_factor=1.1, min_size=(40, 40), front_stages=10,
+                   cap=4096)
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, and 32-bit operations/s
+# outside the tensor cores (the kernels' integer and float32 arithmetic)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
 
 
 class SmokeFailure(Exception):
@@ -89,7 +119,187 @@ def bits_equal(a, b) -> bool:
 
 
 def max_abs_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    """Largest |a - b| in float64, a few million elements at a time (the
+    v1 tail's outputs reach 11 GB)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    step = 1 << 24
+    return max((float((a[i:i + step].double() - b[i:i + step].double())
+                      .abs().max()) for i in range(0, a.numel(), step)),
+               default=0.0)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the 32-bit rate, whichever is larger."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations")
+
+
+def _rect_ops(table, clfs, root_only: bool) -> float:
+    """32-bit operations of one window's pass over classifiers ``clfs``:
+    per rect 3 integer adds, a convert, a multiply and an add; per node a
+    multiply, a compare and a select; per classifier the stage add.  With
+    ``root_only`` a CART classifier counts its root node only (a lower
+    bound: the walk visits at least the root)."""
+    nr = table.n_rects[clfs]
+    nodes = nr[:, :1] if root_only else nr
+    return float((nodes * 6).sum() + 3 * (nodes > 0).sum() + len(clfs))
+
+
+def stage_ops(table):
+    import numpy as np
+    return np.array([_rect_ops(table, np.arange(c0, c0 + n), True)
+                     for c0, n in zip(table.stage_clf0, table.stage_cnt)])
+
+
+def front_bound(det, planes, visit, front_k, table) -> dict:
+    """Bytes: every plane read once, the visit mask, the mask and vnf
+    written once, the table.  Operations: vnf at every position, then
+    each stage's root nodes at the positions that enter it (counted from
+    the kernel's own masks at depths 0..front_k-1)."""
+    from clfacedetection_torch.ops.haar_front import haar_front
+    s, hi, lo, tilted = planes
+    B = s.shape[0]
+    n = B * visit.numel()
+    nbytes = sum(p.numel() * 4 for p in (s, hi, lo, tilted)
+                 if p is not None) + visit.numel() + n * 5 \
+        + table.packed.nbytes
+    ops_st = stage_ops(table)
+    ops = 20.0 * n
+    for st in range(front_k):
+        m, _ = haar_front(s, hi, lo, visit, table, st, tilted=tilted)
+        ops += float(m.sum()) * ops_st[st]
+    return bound(nbytes, ops)
+
+
+def survivor_bases(surv, hv, wv, hp, wp):
+    """Flat indices into the [B, Hp, Wp] planes of the top-left corner of
+    every valid survivor's window."""
+    import torch
+    B = surv.shape[0]
+    idx = surv.long()
+    valid = (idx >= 0) & (idx < hv * wv)
+    y = torch.div(idx, wv, rounding_mode="floor")
+    frame0 = torch.arange(B, device=surv.device)[:, None] * (hp * wp)
+    return (frame0 + y * wp + idx - y * wv)[valid], valid
+
+
+def corner_offsets(table, clfs, tilted: bool, wp: int):
+    """Distinct flat offsets (dy * Wp + dx) of the corners of every rect
+    that classifiers ``clfs`` read from one plane (every node counted)."""
+    import numpy as np
+    live = np.arange(3)[None, None] < table.n_rects[clfs][..., None]
+    live &= (table.tilted[clfs] == tilted)[..., None]
+    cor = table.corners[clfs][live].astype(np.int64)     # [m, 4, 2]
+    return np.unique(cor[..., 0] * wp + cor[..., 1])
+
+
+def mark(mask, bases, offs) -> None:
+    """Set ``mask`` at every base + offset, on the card, in chunks."""
+    import torch
+    if len(offs) == 0 or bases.numel() == 0:
+        return
+    off = torch.as_tensor(offs, device=bases.device)
+    step = max(1, (1 << 26) // len(offs))
+    for i in range(0, bases.numel(), step):
+        mask[(bases[i:i + step, None] + off).reshape(-1)] = True
+
+
+def tail2_bound(table, rows, surv, hv, wv, hp, wp, front_k) -> dict:
+    """Bytes: slot indices, each survivor's vnf, every distinct ``sum``
+    plane entry that the survivors' walks read (a survivor that exits at
+    stage L reads the corners of stages front_k..L; windows overlap, so
+    each entry counts once), the rows written, the stump table.
+    Operations: the stages each survivor walks, ``front_k`` up to its exit
+    stage."""
+    import numpy as np
+    import torch
+    B, cap = surv.shape
+    bases, valid = survivor_bases(surv, hv, wv, hp, wp)
+    lv = rows[..., 2][valid].long().clamp(max=table.n_stages - 1)
+    mask = torch.zeros(B * hp * wp, dtype=torch.bool, device=surv.device)
+    for L in torch.unique(lv).tolist():
+        clfs = np.arange(int(table.stage_clf0[front_k]),
+                         int(table.stage_clf0[L] + table.stage_cnt[L]))
+        mark(mask, bases[lv == L], corner_offsets(table, clfs, False, wp))
+    n_valid = bases.numel()
+    nbytes = B * cap * 4 + n_valid * 4 + int(mask.sum()) * 4 \
+        + B * cap * 16 + table.stumps.nbytes
+    ops_st = stage_ops(table)
+    cum = np.concatenate([[0.0], np.cumsum(ops_st)])
+    ops = float((cum[lv.cpu().numpy() + 1] - cum[front_k]).sum())
+    return bound(nbytes, ops)
+
+
+def tail_bound(table, surv, hv, wv, hp, wp) -> dict:
+    """Bytes: slot indices, every distinct plane entry that some node of
+    some survivor reads (each entry once, however many windows overlap
+    it), every node value written, the table.  Operations: every node of
+    every survivor."""
+    import numpy as np
+    import torch
+    B, cap = surv.shape
+    bases, _ = survivor_bases(surv, hv, wv, hp, wp)
+    clfs = np.arange(table.n_clf)
+    read = 0
+    for tilted in ((False, True) if table.has_tilted else (False,)):
+        mask = torch.zeros(B * hp * wp, dtype=torch.bool, device=surv.device)
+        mark(mask, bases, corner_offsets(table, clfs, tilted, wp))
+        read += int(mask.sum())
+    nn = table.n_clf * table.T
+    nbytes = B * cap * 4 + read * 4 + B * cap * nn * 4 + table.packed.nbytes
+    ops = bases.numel() * float(table.n_rects.sum() * 6)
+    return bound(nbytes, ops)
+
+
+def stencil_matmul(table, ii, surv, hv, wv):
+    """The v1 tail's function as one PyTorch call: prebuilt f32 patches
+    [cap, planes*P] times the signed corner-weight stencil [planes*P, NN]
+    (the TPU kernel's own body).  Returns a timer of the matmul alone
+    (patch extraction excluded) and its output."""
+    import numpy as np
+    import torch
+    ph, pw = table.max_dy + 1, table.max_dx + 1
+    P = ph * pw
+    planes = 2 if table.has_tilted else 1
+    nn = table.n_clf * table.T
+    sten = np.zeros((planes * P, nn), np.float32)
+    sign = np.float32([1, -1, -1, 1])
+    cor = table.corners.reshape(nn, 3, 4, 2)
+    w = table.weights.reshape(nn, 3)
+    nr = table.n_rects.reshape(nn)
+    tl = table.tilted.reshape(nn)
+    for col in range(nn):
+        for k in range(int(nr[col])):
+            for j in range(4):
+                row = int(tl[col]) * P + int(cor[col, k, j, 0]) * pw \
+                    + int(cor[col, k, j, 1])
+                sten[row, col] += sign[j] * w[col, k]
+    sten_t = torch.from_numpy(sten).cuda()
+    n = hv * wv
+    idx = surv[0].long()
+    valid = (idx >= 0) & (idx < n)
+    idx = torch.where(valid, idx, 0)
+    y = torch.div(idx, wv, rounding_mode="floor")
+    wp = ii.sum.shape[2]
+    base = y * wp + (idx - y * wv)
+    dy, dx = np.meshgrid(np.arange(ph), np.arange(pw), indexing="ij")
+    off = torch.from_numpy((dy * wp + dx).reshape(-1)).cuda()
+    g = base[:, None] + off
+    parts = [ii.sum[0].reshape(-1)[g]]
+    if table.has_tilted:
+        parts.append(ii.tilted[0].reshape(-1)[g])
+    # window-local corrections keep f32 exact, as the TPU kernel does
+    patch = torch.cat([(p - p[:, :1]).float() for p in parts], dim=1)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms = timed(lambda: torch.matmul(patch, sten_t), 10)
+        out = torch.matmul(patch, sten_t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return ms, out
 
 
 def check_kernels(det, gray) -> dict:
@@ -101,7 +311,8 @@ def check_kernels(det, gray) -> dict:
     from clfacedetection_torch.ops.haar_front import front_plain, haar_front
     from clfacedetection_torch.ops.haar_tail2 import haar_tail2, tail2_plain
     frames = det.put(gray)
-    s, hi, lo = det._prep_planes(frames)
+    ii = det._prep_planes(frames)
+    s, hi, lo = ii[:3]
     args = (s, hi, lo, det._visit, det.table, det.front_k)
     fk, vk = haar_front(*args)
     fp, vp = front_plain(*args)
@@ -111,7 +322,9 @@ def check_kernels(det, gray) -> dict:
     out = {"haar_front": dict(
         max_abs_err=max(max_abs_err(vk, vp), max_abs_err(fk, fp)),
         ms=timed(lambda: haar_front(*args), 20),
-        plain_ms=timed(lambda: front_plain(*args), 2))}
+        plain_ms=timed(lambda: front_plain(*args), 2),
+        **front_bound(det, ii, det._visit, det.front_k, det.table),
+        library_ms=None)}
     say("kernel", name="haar_front", grid=f"{det.hv}x{det.wv}",
         survivors=int(fk.sum()), **out["haar_front"])
 
@@ -127,10 +340,16 @@ def check_kernels(det, gray) -> dict:
     op, opn = compact_plain(flags, small)
     need(bits_equal(ok_, op) and bits_equal(on, opn) and int(on[0]) > small,
          "overflowing compaction differs or hides the overflow")
+    nz = (lambda: torch.nonzero_static(flags[0], size=det.cap)) \
+        if hasattr(torch, "nonzero_static") else \
+        (lambda: torch.nonzero(flags[0]))
+    lib_ms = timed(nz, 20)
     out["compact"] = dict(
         max_abs_err=max_abs_err(ik, ip),
         ms=timed(lambda: compact(flags, det.cap), 20),
-        plain_ms=timed(lambda: compact_plain(flags, det.cap), 5))
+        plain_ms=timed(lambda: compact_plain(flags, det.cap), 5),
+        **bound(flags.numel() + det.cap * 4 + 4, float(flags.numel())),
+        library_ms=lib_ms)
     say("kernel", name="compact", flags=flags.shape[1], n=n_true,
         cap=det.cap, overflow_cap=small, **out["compact"])
 
@@ -141,10 +360,119 @@ def check_kernels(det, gray) -> dict:
     out["haar_tail2"] = dict(
         max_abs_err=max_abs_err(rk, rp),
         ms=timed(lambda: haar_tail2(*targs), 20),
-        plain_ms=timed(lambda: tail2_plain(*targs), 2))
+        plain_ms=timed(lambda: tail2_plain(*targs), 2),
+        **tail2_bound(det.table, rp, ik, det.hv, det.wv, *s.shape[1:],
+                      det.front_k),
+        library_ms=None)
     say("kernel", name="haar_tail2", slots=det.cap,
         accepted=int((rk[..., 1] > 0).sum()), **out["haar_tail2"])
     return out
+
+
+def check_v1(det, gray) -> dict:
+    """The front (CART and tilted branches) and the v1 tail kernel against
+    their plain versions at the main path's shapes."""
+    import torch
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import front_plain, haar_front
+    from clfacedetection_torch.ops.haar_tail import (haar_tail,
+                                                     tail_values_plain)
+    from clfacedetection_torch.ops.integral import (integral_images,
+                                                    tilted_integral)
+    frames = det.put(gray)
+    ii = det._prep_planes(frames)
+    args = (ii.sum, ii.sq_hi, ii.sq_lo, det._visit, det.table, det.front_k)
+    fk, vk = haar_front(*args, tilted=ii.tilted)
+    fp, vp = front_plain(*args, tilted=ii.tilted)
+    torch.cuda.synchronize()
+    name = det.spec.name
+    need(bits_equal(fk, fp), f"{name}: front mask differs from plain")
+    need(bits_equal(vk, vp), f"{name}: front vnf differs from plain")
+    front = dict(
+        max_abs_err=max(max_abs_err(vk, vp), max_abs_err(fk, fp)),
+        ms=timed(lambda: haar_front(*args, tilted=ii.tilted), 20),
+        plain_ms=timed(lambda: front_plain(*args, tilted=ii.tilted), 2),
+        **front_bound(det, ii, det._visit, det.front_k, det.table),
+        library_ms=None)
+    n_true = int(fk.sum())
+    need(n_true <= det.cap, f"{name}: {n_true} survivors overflow the cap "
+         f"{det.cap} (check after the main path has regrown it)")
+    surv, _ = compact(fk.reshape(1, -1), det.cap)
+    targs = (ii.sum, ii.tilted, surv, det.hv, det.wv, det.table)
+    tk = haar_tail(*targs)
+    tp = tail_values_plain(*targs)
+    torch.cuda.synchronize()
+    need(bits_equal(tk, tp), f"{name}: v1 tail values differ from plain")
+    err = max_abs_err(tk, tp)
+    del tp
+    lib_ms, lib_out = stencil_matmul(det.table, ii, surv, det.hv, det.wv)
+    lib_err = max_abs_err(lib_out[:n_true], tk[0, :n_true])
+    del lib_out
+    tail = dict(
+        max_abs_err=err,
+        ms=timed(lambda: haar_tail(*targs), 10),
+        plain_ms=timed(lambda: tail_values_plain(*targs), 1),
+        **tail_bound(det.table, surv, det.hv, det.wv, *ii.sum.shape[1:]),
+        library_ms=lib_ms,
+        library_max_abs_err=lib_err)
+    say("kernel", name="haar_front", cascade=name, front_k=det.front_k,
+        survivors=n_true, **front)
+    say("kernel", name="haar_tail", cascade=name, slots=det.cap,
+        nodes=tk.shape[2], **tail)
+    out = {"haar_front": front, "haar_tail": tail}
+    if det.table.has_tilted:
+        canvas = det._assemble_canvas(frames)
+        out["rsat_ms"] = timed(lambda: tilted_integral(canvas), 10)
+        out["integrals_ms"] = timed(lambda: integral_images(canvas), 10)
+        say("rsat", cascade=name, canvas=f"{canvas.shape[1]}x"
+            f"{canvas.shape[2]}", rsat_ms=out["rsat_ms"],
+            three_upright_integrals_ms=out["integrals_ms"])
+    return out
+
+
+def breakdown(det, frames) -> dict:
+    """Device ms per frame of each phase of the v1 path, from CUDA events
+    recorded between the phases of one pass (one synchronise)."""
+    import torch
+    from clfacedetection_torch.detect.pyramid import ACCEPT_CAP, tail_rows
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.haar_tail import haar_tail
+    B, cap = frames.shape[0], det.cap
+    names = ("prep", "haar_front", "compact", "haar_tail", "votes_stages",
+             "accept_pack")
+    best = None
+    for _ in range(4):                          # first pass warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        ii = det._prep_planes(frames)
+        ev[1].record()
+        front, vnf = haar_front(ii.sum, ii.sq_hi, ii.sq_lo, det._visit,
+                                det.table, det.front_k, tilted=ii.tilted)
+        ev[2].record()
+        surv, n_surv = compact(front.reshape(B, -1), cap)
+        ev[3].record()
+        values = haar_tail(ii.sum, ii.tilted, surv, det.hv, det.wv,
+                           det.table)
+        ev[4].record()
+        n = det.hv * det.wv
+        valid = (surv >= 0) & (surv < n)
+        svnf = vnf.reshape(B, -1).gather(1, torch.where(valid, surv,
+                                                        0).long())
+        rows = tail_rows(values, svnf, valid, det.table, det.front_k,
+                         det.paths if det.is_tree else None)
+        del values
+        ev[5].record()
+        ok = rows[..., 1] > 0
+        acc, n_acc = compact(ok, min(cap, ACCEPT_CAP))
+        flat = surv.gather(1, torch.where(acc < cap, acc, 0).long())
+        torch.cat([n_surv[:, None], n_acc[:, None], flat], dim=1)
+        ev[6].record()
+        torch.cuda.synchronize()
+        t = [ev[i].elapsed_time(ev[i + 1]) / B for i in range(6)]
+        if best is None or sum(t) < sum(best):
+            best = t
+    return dict(zip(names, best), total=sum(best))
 
 
 def main() -> int:
@@ -166,9 +494,27 @@ def main() -> int:
     from clfacedetection_torch import kernels
     from clfacedetection_torch.ops.compact_kernel import compact
     from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.haar_tail import haar_tail
     from clfacedetection_torch.ops.haar_tail2 import haar_tail2
     counters = {"haar_front": haar_front, "compact": compact,
-                "haar_tail2": haar_tail2}
+                "haar_tail2": haar_tail2, "haar_tail": haar_tail}
+
+    def drive(det, gray):
+        """One detect() through the entry point with every count from 0;
+        returns the result and the counts."""
+        for fn in counters.values():
+            fn.launches = 0
+        res = det.detect(gray, min_neighbors=MIN_NEIGHBORS)
+        torch.cuda.synchronize()
+        return res, {k: fn.launches for k, fn in counters.items()}
+
+    def same_as_plain(det, gray, res, what):
+        frames = det.put(gray)
+        plain_cand, _ = det.readback(
+            det._detect_device(frames, det.cap, plain=True), det.cap)[0]
+        need(len(res.candidates) == len(plain_cand)
+             and bool((res.candidates == plain_cand).all()),
+             f"{what}: candidates differ from the plain path on the card")
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -184,6 +530,7 @@ def main() -> int:
     say("build", seconds=round(time.perf_counter() - t0, 3),
         flags=" ".join(kernels.NVCC_FLAGS))
 
+    # ---- tail2's path: frontalface_alt ------------------------------
     spec = ct.load_cascade(CASCADE)
     gray = frame(3)
     det = ct.PyramidDetector(spec, SHAPE, device="cuda", **KNOBS)
@@ -191,22 +538,14 @@ def main() -> int:
         visited=det.n_visit, front_k=det.front_k, cap=det.cap)
     results = check_kernels(det, gray)
 
-    # main path: counters from 0, one detect() through the kernels
-    for fn in counters.values():
-        fn.launches = 0
-    res = det.detect(gray, min_neighbors=MIN_NEIGHBORS)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    need(all(v > 0 for v in launches.values()),
-         f"a kernel was not launched on the main path: {launches}")
+    res, launches = drive(det, gray)
+    need(all(launches[k] > 0 for k in ("haar_front", "compact",
+                                       "haar_tail2"))
+         and launches["haar_tail"] == 0,
+         f"tail2's path did not run its kernels: {launches}")
     need(not res.survivor_overflow, "survivor cap overflowed")
-    frames = det.put(gray)
-    plain_cand, plain_ovf = det.readback(
-        det._detect_device(frames, det.cap, plain=True), det.cap)[0]
     need(len(res.candidates) > 0, "no candidates at 1080p")
-    need(bool((res.candidates == plain_cand).all())
-         and len(res.candidates) == len(plain_cand),
-         "1080p candidates differ from the plain path on the card")
+    same_as_plain(det, gray, res, "1080p frontalface_alt")
     say("detect", shape=f"{SHAPE[0]}x{SHAPE[1]}",
         candidates=len(res.candidates), launches=json.dumps(launches),
         boxes=json.dumps(res.boxes.tolist()),
@@ -221,44 +560,133 @@ def main() -> int:
          "VGA candidates on the card differ from the CPU plain path")
     say("vga", candidates=len(vc), equal_to_cpu=True)
 
-    # batched stream: every frame equal to the single-frame path
-    seeds = [3, 11, 17, 29]
-    singles = {sd: det.detect(frame(sd), MIN_NEIGHBORS) for sd in seeds}
-    order = [seeds[i % len(seeds)] for i in range(BATCH * N_BATCHES)]
-    bdet = ct.BatchedPyramidDetector(spec, SHAPE, batch=BATCH,
-                                     device="cuda", **KNOBS)
     import numpy as np
+    seeds = [3, 11, 17, 29]
     stack = {sd: frame(sd) for sd in seeds}
-    batches = [np.stack([stack[sd] for sd in order[i:i + BATCH]])
-               for i in range(0, len(order), BATCH)]
-    got = [r for out in bdet.detect_stream(batches, MIN_NEIGHBORS)
-           for r in out]
-    need(len(got) == len(order), "stream lost frames")
-    for sd, r in zip(order, got):
-        one = singles[sd]
-        need(np.array_equal(r.candidates, one.candidates)
-             and np.array_equal(r.boxes, one.boxes),
-             f"stream frame (seed {sd}) differs from the single-frame path")
-    say("stream", batch=BATCH, batches=N_BATCHES, frames=len(got),
-        equal_to_single=True)
 
-    # device ms/frame, kernel path vs plain path
-    times = {}
+    def stream_equals_singles(spec, det, what):
+        """Batched stream: every frame equal to the single-frame path."""
+        singles = {sd: det.detect(stack[sd], MIN_NEIGHBORS) for sd in seeds}
+        order = [seeds[i % len(seeds)] for i in range(BATCH * N_BATCHES)]
+        bdet = ct.BatchedPyramidDetector(spec, SHAPE, batch=BATCH,
+                                         device="cuda", **KNOBS)
+        batches = [np.stack([stack[sd] for sd in order[i:i + BATCH]])
+                   for i in range(0, len(order), BATCH)]
+        got = [r for out in bdet.detect_stream(batches, MIN_NEIGHBORS)
+               for r in out]
+        need(len(got) == len(order), f"{what}: stream lost frames")
+        for sd, r in zip(order, got):
+            one = singles[sd]
+            need(np.array_equal(r.candidates, one.candidates)
+                 and np.array_equal(r.boxes, one.boxes),
+                 f"{what}: stream frame (seed {sd}) differs from the "
+                 f"single-frame path")
+        say("stream", cascade=what, batch=BATCH, batches=N_BATCHES,
+            frames=len(got), candidates=sum(len(r.candidates) for r in got),
+            equal_to_single=True)
+        return bdet
+
+    bdet = stream_equals_singles(spec, det, CASCADE)
+
+    def path_times(det, bdet, what, plain_reps=2):
+        """Device ms/frame, kernel path vs plain path."""
+        times = {}
+        for b in (1, BATCH):
+            fr = bdet.put(np.stack([stack[seeds[i % 4]] for i in range(b)]))
+            cap = det.cap
+            k = timed(lambda: det._detect_device(fr, cap), 10) / b
+            p = timed(lambda: det._detect_device(fr, cap, plain=True),
+                      plain_reps) / b
+            times[str(b)] = {"kernel": k, "plain": p}
+            say("time", cascade=what, batch=b, kernel_ms_per_frame=round(k, 4),
+                plain_ms_per_frame=round(p, 4))
+        return times
+
+    ms_per_frame = {CASCADE: path_times(det, bdet, CASCADE)}
+    del bdet
+
+    # ---- the v1 tail's path: CART, tilted, stage tree ----------------
+    v1 = {}
+    v1_launches = {}
+    for cname in V1_CASCADES:
+        vdet = ct.PyramidDetector(ct.load_cascade(cname), SHAPE,
+                                  device="cuda", **KNOBS)
+        need(not vdet.use_tail2, f"{cname} took tail2")
+        say("plan", cascade=cname, levels=vdet.n_levels,
+            canvas=f"{vdet.hv}x{vdet.wv}", front_k=vdet.front_k,
+            cap=vdet.cap, nodes=vdet.table.n_clf * vdet.table.T,
+            tilted=vdet.table.has_tilted, tree=vdet.is_tree)
+        vres, vl = drive(vdet, gray)
+        need(all(vl[k] > 0 for k in ("haar_front", "compact", "haar_tail"))
+             and vl["haar_tail2"] == 0,
+             f"{cname}: the v1 path did not run its kernels: {vl}")
+        same_as_plain(vdet, gray, vres, f"1080p {cname}")
+        v1_launches[cname] = vl
+        say("detect", cascade=cname, candidates=len(vres.candidates),
+            overflow=vres.survivor_overflow, cap=vdet.cap,
+            launches=json.dumps(vl), boxes=json.dumps(vres.boxes.tolist()))
+        # after the main path, so that the kernels are held to their plain
+        # versions at the slot count it ran with (regrown where it overflowed)
+        v1[cname] = check_v1(vdet, gray)
+        del vdet
+        torch.cuda.empty_cache()
+
+    # strategy="block" on frontalface_alt: the v1 tail, same candidates
+    bl = ct.PyramidDetector(spec, SHAPE, device="cuda", strategy="block",
+                            **KNOBS)
+    bres, bll = drive(bl, gray)
+    need(bll["haar_tail"] > 0 and bll["haar_tail2"] == 0,
+         f"strategy=block did not take the v1 tail: {bll}")
+    need(np.array_equal(bres.candidates, res.candidates)
+         and np.array_equal(bres.boxes, res.boxes),
+         "strategy=block differs from the per-stage path")
+    say("block", cascade=CASCADE, candidates=len(bres.candidates),
+        launches=json.dumps(bll), equal_to_per_stage=True)
+    del bl
+
+    # VGA sweep of every cascade the v1 tail serves: card = CPU
+    t0 = time.perf_counter()
+    sweep = {}
+    for cname in V1_SERVED:
+        cs = ct.load_cascade(cname)
+        g = frame(5, VGA)
+        dc = ct.PyramidDetector(cs, VGA, device="cuda", **SWEEP_KNOBS)
+        need(not dc.use_tail2, f"{cname} took tail2")
+        gc, go = dc.candidates(g)
+        pc, po = ct.PyramidDetector(cs, VGA, device="cpu",
+                                    **SWEEP_KNOBS).candidates(g)
+        need(go == po and gc.shape == pc.shape and bool((gc == pc).all()),
+             f"VGA {cname}: card candidates differ from the CPU")
+        sweep[cname] = len(gc)
+    say("vga_sweep", shape=f"{VGA[0]}x{VGA[1]}", cascades=len(sweep),
+        seconds=round(time.perf_counter() - t0, 3),
+        candidates=json.dumps(sweep), equal_to_cpu=True)
+
+    # batch-8 stream of frontalface_alt2, phase breakdown, path times
+    a2 = V1_CASCADES[0]
+    a2spec = ct.load_cascade(a2)
+    a2det = ct.PyramidDetector(a2spec, SHAPE, device="cuda", **KNOBS)
+    a2b = stream_equals_singles(a2spec, a2det, a2)
+    phases = {}
     for b in (1, BATCH):
-        fr = bdet.put(np.stack([stack[seeds[i % 4]] for i in range(b)]))
-        cap = det.cap
-        k = timed(lambda: det._detect_device(fr, cap), 10) / b
-        p = timed(lambda: det._detect_device(fr, cap, plain=True), 2) / b
-        times[b] = (k, p)
-        say("time", batch=b, kernel_ms_per_frame=round(k, 4),
-            plain_ms_per_frame=round(p, 4))
+        fr = a2b.put(np.stack([stack[seeds[i % 4]] for i in range(b)]))
+        phases[str(b)] = breakdown(a2det, fr)
+        say("phases", cascade=a2, batch=b, **phases[str(b)])
+    ms_per_frame[a2] = path_times(a2det, a2b, a2, plain_reps=1)
 
+    entry = dict(results)
+    entry["haar_tail"] = v1[a2]["haar_tail"]
+    paths = {CASCADE: launches, **v1_launches}
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=launches[k], **results[k])
+             launches=(launches if k != "haar_tail" else
+                       v1_launches[a2])[k], **entry[k])
         for k, src, rep in KERNELS]}
-    record["ms_per_frame"] = {str(b): {"kernel": k, "plain": p}
-                              for b, (k, p) in times.items()}
+    record["launches_by_path"] = paths
+    record["v1_checks"] = v1
+    record["phases_ms_per_frame"] = {a2: phases}
+    record["ms_per_frame"] = ms_per_frame
+    record["vga_sweep"] = sweep
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

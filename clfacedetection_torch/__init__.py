@@ -1,10 +1,10 @@
 """clfacedetection_torch — the PyTorch/CUDA port of clfacedetection_tpu.
 
 Viola-Jones object detection with OpenCV's scale-image semantics: cascade
-loading, a packed resize pyramid, integral images, and three hand-written
-CUDA kernels for Hopper (dense front, ordered compaction, survivor tail)
-behind plain PyTorch twins that run on the CPU.  Imports torch and numpy,
-never jax.
+loading, a packed resize pyramid, integral images, and four hand-written
+CUDA kernels for Hopper (dense front, ordered compaction, the tail2
+cascade walk and the v1 all-nodes tail) behind plain PyTorch twins that
+run on the CPU.  Imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"

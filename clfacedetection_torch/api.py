@@ -5,7 +5,9 @@ Port of ``clfacedetection_tpu/api.py`` in scale-image mode:
 ``detect_objects`` (the reference's ``clodDetectObjects``, clod.h:61-81).
 Detectors are built per (frame shape, parameters) and cached.
 
-Not ported yet (ROADMAP Queue 1): scale-cascade mode, Canny pruning,
+Every cascade of the zoo runs.  The entry points run on the card unless
+given ``device="cpu"``, and raise without one.  Not ported yet (ROADMAP
+Queue 2): the "direct" strategy, scale-cascade mode, Canny pruning,
 find-biggest-object, the ROC overload and the numpy golden fallback.
 """
 
@@ -62,7 +64,7 @@ def _to_gray(image) -> np.ndarray:
 
 class CascadeClassifier:
     """OpenCV-compatible multi-scale detector over one cascade model, in
-    scale-image mode.
+    scale-image mode, on ``device`` (the card unless ``"cpu"``).
 
     >>> clf = CascadeClassifier("haarcascade_frontalface_alt")
     >>> boxes = clf.detect_multi_scale(frame, scale_factor=1.1,
@@ -127,7 +129,7 @@ class CascadeClassifier:
         if flags & (CV_HAAR_DO_CANNY_PRUNING | CV_HAAR_FIND_BIGGEST_OBJECT):
             raise NotImplementedError(
                 "Canny pruning and find-biggest-object are not ported yet "
-                "(ROADMAP Queue 1)")
+                "(ROADMAP Queue 2)")
         gray = _to_gray(image)
         det = self._detector(gray.shape, scale_factor, min_size, max_size,
                              **knobs)
@@ -142,18 +144,30 @@ def detect_objects(image, cascade: Union[str, CascadeSpec],
                                  | CLOD_PER_STAGE_ITERATIONS),
                    scale_factor: float = 1.1, device=None):
     """clodDetectObjects-shaped entry point (clod.h:61-81); returns a list
-    of :class:`WeightedRect`.  The port has one execution strategy, the
-    per-stage tail walk, which ``CLOD_PER_STAGE_ITERATIONS`` selects; the
-    block and direct strategies of the JAX package are not ported."""
-    if not flags & CLOD_PER_STAGE_ITERATIONS:
+    of :class:`WeightedRect`.  The ``clod_flags`` strategy bits map as in
+    the JAX package (``clfacedetection_tpu/api.py:282-287``):
+
+    - ``CLOD_PER_STAGE_ITERATIONS`` -> ``strategy="per_stage"``, front 4:
+      tail2's in-kernel cascade walk where the cascade allows it, the v1
+      tail otherwise;
+    - ``CLOD_BLOCK_IMPLEMENTATION`` (or ``CLOD_PRECOMPUTE_FEATURES``
+      alone) -> ``strategy="block"``, front 2: the v1 tail, every node's
+      value for every survivor;
+    - neither bit (the "direct" strategy) is not ported yet and raises."""
+    if flags & CLOD_PER_STAGE_ITERATIONS:
+        strategy, front = "per_stage", 4
+    elif flags & (CLOD_BLOCK_IMPLEMENTATION | CLOD_PRECOMPUTE_FEATURES):
+        strategy, front = "block", 2
+    else:
         raise NotImplementedError(
-            "only CLOD_PER_STAGE_ITERATIONS is ported (ROADMAP Queue 1)")
+            "the direct strategy (neither CLOD_PER_STAGE_ITERATIONS nor "
+            "CLOD_BLOCK_IMPLEMENTATION) is not ported yet (ROADMAP Queue 2)")
     spec = cascade if isinstance(cascade, CascadeSpec) else \
         load_cascade(cascade)
     clf = CascadeClassifier(spec, device=device)
     res = clf.detect_multi_scale_full(
         image, scale_factor=scale_factor, min_neighbors=min_neighbors,
         min_size=tuple(min_window_size) if min_window_size else (0, 0),
-        max_size=max_window_size, front_stages=4)
+        max_size=max_window_size, front_stages=front, strategy=strategy)
     return [WeightedRect(int(x), int(y), int(w), int(h), int(n))
             for (x, y, w, h), n in zip(res.boxes, res.neighbors)]

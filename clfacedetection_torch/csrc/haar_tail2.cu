@@ -10,12 +10,13 @@
 // What bounds it on the H100: scattered integral loads.  Survivors are
 // spread over the canvas, so each node's corner loads hit scattered cache
 // lines; the tail of frontalface_alt holds 1,751 stumps.  Design: one
-// thread per survivor slot, the node table read warp-uniformly, and early
-// exit at the first failing stage (most survivors die within the first
-// two tail stages).  The TPU kernel built a 21x21 integral patch per
-// survivor and ran a HIGHEST-precision MXU stencil product for the node
-// values; a GPU thread reads the four corners of each rect straight from
-// the integral plane instead, so no patch and no matrix product exist.
+// thread per survivor slot, the table's compact stump view (cascade.cuh)
+// read warp-uniformly, and early exit at the first failing stage (most
+// survivors die within the first two tail stages).  The TPU kernel built
+// a 21x21 integral patch per survivor and ran a HIGHEST-precision MXU
+// stencil product for the node values; a GPU thread reads the four
+// corners of each rect straight from the integral plane instead, so no
+// patch and no matrix product exist.
 //
 // Node values.  The raw rect weights of the four cascades this path
 // serves (eye, frontalface_alt, frontalface_default, profileface) are
@@ -23,9 +24,9 @@
 // weights the detector uses carry the 1/area normalisation
 // (compile.py at_scale), so node values are NOT integers and their
 // summation order matters in the last bit.  This kernel uses the front's
-// order (cascade.cuh clfd_stage_sum), which the plain version repeats bit
-// for bit; the JAX tails sum in a matrix-product order, so they agree
-// with this kernel up to f32 rounding noise in the stage sums.
+// order (cascade.cuh clfd_stump_stage_sum), which the plain version
+// repeats bit for bit; the JAX tails sum in a matrix-product order, so
+// they agree with this kernel up to f32 rounding noise in the stage sums.
 #include <cuda_runtime.h>
 
 #include "cascade.cuh"
@@ -36,7 +37,7 @@ constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)
 tail2_kernel(const int* __restrict__ sum, const float* __restrict__ vnf,
-             const int* __restrict__ surv, const int* __restrict__ table,
+             const int* __restrict__ surv, const int* __restrict__ stumps,
              float4* __restrict__ out, int hv, int wv, int hp, int wp,
              int cap, int n_table_stages, int front_k) {
   const int slot = blockIdx.x * kThreads + threadIdx.x;
@@ -57,9 +58,10 @@ tail2_kernel(const int* __restrict__ sum, const float* __restrict__ vnf,
   float level = (float)n_table_stages;
   float weight = 0.0f;
   for (int st = front_k; st < n_table_stages; ++st) {
-    const float ssum = clfd_stage_sum(table, n_table_stages, st, p, wp, v);
+    const float ssum = clfd_stump_stage_sum(stumps, n_table_stages, st, p,
+                                            wp, v);
     weight = ssum;
-    if (!(ssum >= clfd_stage_threshold(table, st))) {
+    if (!(ssum >= clfd_stage_threshold(stumps, st))) {
       level = (float)st;
       alive = 0.0f;
       break;
@@ -71,13 +73,13 @@ tail2_kernel(const int* __restrict__ sum, const float* __restrict__ vnf,
 }  // namespace
 
 extern "C" int clfd_haar_tail2(const int* sum, const float* vnf,
-                               const int* surv, const int* table, float* out,
+                               const int* surv, const int* stumps, float* out,
                                int batch, int hv, int wv, int hp, int wp,
                                int cap, int n_table_stages, int front_k,
                                void* stream) {
   const dim3 grid((cap + kThreads - 1) / kThreads, batch);
   tail2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      sum, vnf, surv, table, reinterpret_cast<float4*>(out), hv, wv, hp, wp,
+      sum, vnf, surv, stumps, reinterpret_cast<float4*>(out), hv, wv, hp, wp,
       cap, n_table_stages, front_k);
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,14 @@ Per batch of frames the device pipeline is
     -> accept compaction (kernel) -> ONE packed int32 readback
        [n_surv, n_acc, acc_y[acap], acc_x[acap]] per frame
 
-with no host synchronisation inside it.  This slice covers stump
-cascades with upright features and sequential stages (eye,
-frontalface_alt, frontalface_default, profileface).
+with no host synchronisation inside it.  Two survivor tails, as in the
+JAX package (``pyramid.py:427-481``): tail2 walks the cascade inside its
+kernel with early exit and serves stump cascades with upright features,
+sequential stages and windows up to 31 px wide; the v1 tail computes
+every node's value in its kernel and leaves CART walks, stage sums and
+stage-tree path masks to plain torch here.  It serves every other
+cascade of the zoo (CART trees, tilted features, stage trees, wide
+windows) and ``strategy="block"``.
 """
 
 from __future__ import annotations
@@ -30,22 +35,140 @@ from ..models.compile import (compile_cascade, cv_round, scale_factors,
                               truncate_cascade)
 from ..models.spec import CascadeSpec
 from ..ops.compact_kernel import compact, compact_plain
+from ..ops.cascade_table import CascadeTable
 from ..ops.haar_front import front_plain, haar_front
+from ..ops.haar_tail import haar_tail, tail_values_plain
 from ..ops.haar_tail2 import haar_tail2, tail2_plain
-from ..ops.integral import integral_images
+from ..ops.integral import IntegralImages, integral_images
 from ..ops.resize import resize_bilinear_u8, resize_plan
-from ..ops.stump_table import StumpTable
-from .detector import DetectionResult, _build_clf_tables
+from .detector import DetectionResult, _build_clf_tables, _stage_paths
 from .grouping import group_rectangles
 
 __all__ = ["PyramidDetector", "PyramidPlan", "default_device"]
 
 ACCEPT_CAP = 4096   # accepted windows read back per frame in one array
+STRATEGIES = (None, "per_stage", "block")
+# float32 elements of one chunk of the v1 tail's vote tensors
+_VOTE_CHUNK_ELEMS = 1 << 26
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card.  The entry points run on CUDA unless given
+    ``device="cpu"``; without a card they raise rather than run the plain
+    versions unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device=\"cpu\" to run the plain PyTorch "
+            "versions of the kernels on the CPU")
+    return torch.device("cuda")
+
+
+def _cart_votes(nv: torch.Tensor, svnf: torch.Tensor, table: CascadeTable,
+                c0: int) -> torch.Tensor:
+    """Classifier votes [B, cap, m] from node values [B, cap, m, T] of
+    classifiers ``c0..c0+m-1`` (JAX ``_cart_votes``, pyramid.py:68-116):
+    ``cmp = node < thr * vnf`` with the product rounded first, then the
+    walk from node 0 to the reached leaf's alpha.  Padded nodes are never
+    walked: links only point to a classifier's own later nodes."""
+    m, T = nv.shape[2], nv.shape[3]
+    dev, dtype = nv.device, nv.dtype
+    sl = slice(c0, c0 + m)
+    thr = torch.from_numpy(table.thr[sl]).to(dev, dtype)          # [m, T]
+    cmp = nv < thr * svnf[..., None, None]
+    alpha = torch.from_numpy(table.alpha[sl]).to(dev, dtype)      # [m, T+1]
+    rows = torch.arange(m, device=dev)
+    if T == 1:                       # stumps: leaves alpha[-left/-right]
+        a_l = alpha[rows, torch.from_numpy(-table.left[sl, 0]).to(dev)]
+        a_r = alpha[rows, torch.from_numpy(-table.right[sl, 0]).to(dev)]
+        return torch.where(cmp[..., 0], a_l, a_r)
+    left = torch.from_numpy(table.left[sl]).to(dev).long()
+    right = torch.from_numpy(table.right[sl]).to(dev).long()
+    idx = torch.zeros(cmp.shape[:3], dtype=torch.long, device=dev)
+    val = torch.zeros(cmp.shape[:3], dtype=dtype, device=dev)
+    done = torch.zeros(cmp.shape[:3], dtype=torch.bool, device=dev)
+    for _ in range(T):
+        c = cmp.gather(3, idx[..., None])[..., 0]
+        nxt = torch.where(c, left[rows, idx], right[rows, idx])
+        leaf = nxt <= 0
+        av = alpha[rows, (-nxt).clamp(0, T)]
+        val = torch.where(leaf & ~done, av, val)
+        done = done | leaf
+        idx = nxt.clamp(0, T - 1)
+    return val
+
+
+def tail_rows(values: torch.Tensor, svnf: torch.Tensor, valid: torch.Tensor,
+              table: CascadeTable, front_k: int,
+              paths: Optional[List[List[int]]] = None) -> torch.Tensor:
+    """The v1 tail's decisions from its node values [B, cap, n_clf*T], in
+    tail2's row format [B, cap, 4]: vnf, alive, exit stage, stage sum.
+
+    Stage sums are sequential in classifier order (the front's order, so
+    front and tail agree, and the card and the CPU agree bit for bit).
+    Sequential cascades (``paths=None``) evaluate stages
+    ``front_k..S-1``: alive = all pass, exit stage = the first failing one
+    (S on a pass), stage sum = that stage's.  Stage trees evaluate every
+    stage and accept when any root-to-leaf path passes all its stages
+    (``_tail_accept_chunk``, pyramid.py:725-749): exit stage S on accept
+    and 0 otherwise, stage sum = the first passing path's leaf stage.  Pad
+    slots give (0, 0, S, 0)."""
+    B, cap = valid.shape
+    S, T, dev = table.n_stages, table.T, values.device
+    dtype = svnf.dtype
+    s_lo = 0 if paths is not None else min(front_k, S)
+    ns = S - s_lo
+    if ns == 0:
+        alive = valid
+        level = torch.full_like(svnf, float(S))
+        weight = torch.zeros_like(svnf)
+    else:
+        # stages in groups whose votes fit one chunk (a group holds at
+        # least one stage), so no [B, cap, n_clf] vote tensor is built
+        ssum = torch.empty((B, cap, ns), dtype=dtype, device=dev)
+        step = max(1, _VOTE_CHUNK_ELEMS // max(1, B * cap * T))
+        c0s, cnts = table.stage_clf0, table.stage_cnt
+        st = s_lo
+        while st < S:
+            en = st + 1
+            while en < S and c0s[en] + cnts[en] - c0s[st] <= step:
+                en += 1
+            ca, cb = int(c0s[st]), int(c0s[en - 1] + cnts[en - 1])
+            nv = values[:, :, ca * T:cb * T].reshape(B, cap, cb - ca, T)
+            votes = _cart_votes(nv.to(dtype), svnf, table, ca)
+            ofs = torch.from_numpy(c0s[st:en] - ca).to(dev).long()
+            cnt = torch.from_numpy(cnts[st:en]).to(dev).long()
+            g = torch.zeros((B, cap, en - st), dtype=dtype, device=dev)
+            for j in range(int(cnts[st:en].max())):
+                v = votes.index_select(2, (ofs + j).clamp(max=cb - ca - 1))
+                g = torch.where(j < cnt, g + v, g)
+            ssum[:, :, st - s_lo:en - s_lo] = g
+            del votes, nv
+            st = en
+        del values
+        thr = torch.from_numpy(table.stage_thr[s_lo:]).to(dev, dtype)
+        st_pass = ssum >= thr                                # [B, cap, ns]
+        if paths is None:
+            fail = ~st_pass
+            alive = valid & ~fail.any(dim=2)
+            first = fail.to(torch.uint8).argmax(dim=2)
+            level = torch.where(fail.any(dim=2), (first + s_lo).to(dtype),
+                                float(S))
+            widx = torch.where(fail.any(dim=2), first, ns - 1)
+        else:
+            pm = np.zeros((len(paths), S), bool)
+            for i, p in enumerate(paths):
+                pm[i, p] = True
+            off_path = torch.from_numpy(~pm).to(dev)
+            per_path = (st_pass[:, :, None, :] | off_path).all(dim=3)
+            accept = per_path.any(dim=2)
+            alive = valid & accept
+            leaf = torch.tensor([p[-1] for p in paths], device=dev)
+            widx = leaf[per_path.to(torch.uint8).argmax(dim=2)]
+            level = torch.where(accept, float(S), 0.0).to(dtype)
+        weight = ssum.gather(2, widx[..., None])[..., 0]
+    return torch.stack([torch.where(valid, svnf, 0.0), alive.to(dtype),
+                        torch.where(valid, level, float(S)),
+                        torch.where(valid, weight, 0.0)], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,11 +299,15 @@ class PyramidPlan:
 class PyramidDetector:
     """Scale-image detector for one (cascade, frame shape) pair.
 
-    ``device`` is where the pipeline runs (default: the card when there is
-    one).  On a CUDA device the front, compaction and tail run as CUDA
-    kernels in float32; on the CPU their plain PyTorch versions run, in
-    float32 or float64.  ``cap`` is the survivor slot count per frame; it
-    grows 4x while a frame overflows it (``candidates``/``detect``)."""
+    ``device`` is where the pipeline runs: the card by default (an error
+    without one); ``device="cpu"`` runs the plain PyTorch versions.  On a
+    CUDA device the front, compaction and tail run as CUDA kernels in
+    float32; on the CPU their plain versions run, in float32 or float64.
+    ``cap`` is the survivor slot count per frame; it grows 4x while a
+    frame overflows it (``candidates``/``detect``).  ``strategy`` picks the
+    survivor tail: ``None``/``"per_stage"`` take tail2 where the cascade
+    allows it and the v1 tail otherwise; ``"block"`` always takes the v1
+    tail."""
 
     def __init__(self, spec: CascadeSpec, image_shape: Tuple[int, int],
                  scale_factor: float = 1.1,
@@ -190,6 +317,7 @@ class PyramidDetector:
                  cap: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  max_stages: Optional[int] = None,
+                 strategy: Optional[str] = None,
                  device=None):
         self.spec = spec
         self.H, self.W = int(image_shape[0]), int(image_shape[1])
@@ -201,25 +329,32 @@ class PyramidDetector:
             raise NotImplementedError(
                 "float64 runs on the CPU only: the CUDA kernels are float32 "
                 "(as the JAX package's Pallas path is)")
+        if strategy == "direct":
+            raise NotImplementedError(
+                "strategy \"direct\" is not ported yet (ROADMAP Queue 2: "
+                "the direct strategy)")
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r}")
+        self.strategy = strategy
         self.dtype = dtype
         c = compile_cascade(spec)
         if max_stages is not None:
             c = truncate_cascade(c, max_stages)
         self.compiled = c
         self.n_stages = c.spec.n_stages
-        if c.is_tree:
-            raise NotImplementedError(
-                "stage-tree cascades are not ported yet (ROADMAP Queue 2: "
-                "v1 tail)")
-        if not c.is_stump_based:
-            raise NotImplementedError(
-                "CART cascades are not ported yet (ROADMAP Queue 2: front "
-                "CART branch and v1 tail)")
-        if c.has_tilted:
-            raise NotImplementedError(
-                "tilted features are not ported yet (ROADMAP Queue 2: "
-                "tilted RSAT, front tilted branch and v1 tail)")
+        self.is_tree = c.is_tree
+        self.paths = _stage_paths(c)
         self.front_k = max(1, min(front_stages, self.n_stages))
+        if self.is_tree:
+            # the front ANDs its stages, which is sound only over the
+            # stages common to every root-to-leaf path: a window may fail
+            # stage 5 and pass through a sibling subtree (pyramid.py:359-369)
+            common = min(len(p) for p in self.paths)
+            for i in range(common):
+                if len({p[i] for p in self.paths}) != 1:
+                    common = i
+                    break
+            self.front_k = max(1, min(self.front_k, common))
         self.plan = PyramidPlan.build(spec, image_shape, scale_factor,
                                       min_size, max_size)
         self.n_levels = len(self.plan.levels)
@@ -231,8 +366,12 @@ class PyramidDetector:
         self.hv, self.wv = self.plan.canvas_h + 1, self.plan.canvas_w + 1
         tables = _build_clf_tables(c, [1.0])
         sc1 = c.at_scale(1.0)
-        self.table = StumpTable.build(c, tables, sc1.equ_corner_y,
-                                      sc1.equ_corner_x, sc1.inv_area)
+        self.table = CascadeTable.build(c, tables, sc1.equ_corner_y,
+                                        sc1.equ_corner_x, sc1.inv_area)
+        # tail2 where the JAX package takes it (pyramid.py:476-481)
+        self.use_tail2 = (strategy != "block" and self.table.T == 1
+                          and not self.is_tree and not c.has_tilted
+                          and w0 + 1 <= 32)
         vm = self.plan.visit_mask(w0, h0)
         self.n_visit = int(vm.sum())
         if cap is None:
@@ -260,10 +399,12 @@ class PyramidDetector:
             canvas[:, lv.oy:lv.oy + lv.h, lv.ox:lv.ox + lv.w] = lvl
         return canvas
 
-    def _prep_planes(self, frames: torch.Tensor):
-        """Canvas, integral planes, zero pad: (sum, sq_hi, sq_lo), each
-        int32 [B, Hv + pad, Wv + pad]."""
-        return integral_images(self._assemble_canvas(frames), self._pad)
+    def _prep_planes(self, frames: torch.Tensor) -> IntegralImages:
+        """Canvas, integral planes, zero pad: (sum, sq_hi, sq_lo, tilted),
+        each int32 [B, Hv + pad, Wv + pad]; ``tilted`` only for cascades
+        with tilted features (pyramid.py:762-771), else None."""
+        return integral_images(self._assemble_canvas(frames), self._pad,
+                               with_tilted=self.compiled.has_tilted)
 
     # --------------------------------------------------------- pipeline
     def _detect_device(self, frames: torch.Tensor, cap: int,
@@ -274,13 +415,16 @@ class PyramidDetector:
         reference a card run is checked against)."""
         front_fn = front_plain if plain else haar_front
         compact_fn = compact_plain if plain else compact
-        tail_fn = tail2_plain if plain else haar_tail2
         B = frames.shape[0]
-        s, hi, lo = self._prep_planes(frames)
+        s, hi, lo, tilted = self._prep_planes(frames)
         front, vnf = front_fn(s, hi, lo, self._visit, self.table,
-                              self.front_k, self.dtype)
+                              self.front_k, self.dtype, tilted)
         surv_idx, n_surv = compact_fn(front.reshape(B, -1), cap)
-        rows = tail_fn(s, vnf, surv_idx, self.table, self.front_k)
+        if self.use_tail2:
+            tail_fn = tail2_plain if plain else haar_tail2
+            rows = tail_fn(s, vnf, surv_idx, self.table, self.front_k)
+        else:
+            rows = self._tail_v1(s, tilted, vnf, surv_idx, plain)
         ok = rows[..., 1] > 0
         acap = min(cap, ACCEPT_CAP)
         acc, n_acc = compact_fn(ok, acap)
@@ -289,6 +433,21 @@ class PyramidDetector:
         packed = torch.cat([n_surv[:, None], n_acc[:, None], acc_y,
                             acc_flat - acc_y * self.wv], dim=1)
         return dict(packed=packed, surv_idx=surv_idx, ok=ok)
+
+    def _tail_v1(self, s, tilted, vnf, surv_idx, plain: bool = False):
+        """v1 tail: every node's value (kernel), then votes, stage sums
+        and accept (plain torch), as tail2's rows [B, cap, 4]."""
+        tail_fn = tail_values_plain if plain else haar_tail
+        n = self.hv * self.wv
+        valid = (surv_idx >= 0) & (surv_idx < n)
+        svnf = vnf.reshape(vnf.shape[0], -1).gather(
+            1, torch.where(valid, surv_idx, 0).long())
+        # the node values are passed on without a name here, so that
+        # tail_rows can free them once the stage sums are taken
+        return tail_rows(tail_fn(s, tilted, surv_idx, self.hv, self.wv,
+                                 self.table, self.dtype),
+                         svnf, valid, self.table, self.front_k,
+                         self.paths if self.is_tree else None)
 
     def put(self, frames) -> torch.Tensor:
         """[B, H, W] (or [H, W]) uint8 -> a [B, H, W] tensor on the

@@ -37,11 +37,12 @@ _lib: Optional[ctypes.CDLL] = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "clfd_haar_front": [_P] * 7 + [_I] * 11 + [_F, _P],
+    "clfd_haar_front": [_P] * 8 + [_I] * 11 + [_F, _P],
     "clfd_compact_count": [_P, _P, _I, _I, _I, _P],
     "clfd_compact_scan": [_P, _P, _P, _I, _I, _P],
     "clfd_compact_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "clfd_haar_tail2": [_P] * 5 + [_I] * 8 + [_P],
+    "clfd_haar_tail": [_P] * 5 + [_I] * 11 + [_P],
 }
 
 

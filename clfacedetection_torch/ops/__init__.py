@@ -1,3 +1,4 @@
 """Device ops of the port.  Each kernel module (``haar_front``,
-``compact_kernel``, ``haar_tail2``) holds the kernel's wrapper and its
-plain PyTorch twin."""
+``compact_kernel``, ``haar_tail2``, ``haar_tail``) holds the kernel's
+wrapper and its plain PyTorch twin; ``cascade_table`` packs the cascade
+they all read."""

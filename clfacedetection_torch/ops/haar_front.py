@@ -5,8 +5,9 @@ Port of the TPU kernel ``clfacedetection_tpu/ops/haar_front.py``
 ``PyramidDetector._front_from_planes`` / ``_front_maps``
 (``pyramid.py:556-605,1015-1043``).  For every canvas position: the
 variance factor ``vnf`` over the ``equ`` rect, then stages
-``0..front_k-1`` (votes ``node < thr * vnf``, sequential stage sums,
-``>= stage_thr``), ANDed with the static visit lattice.
+``0..front_k-1`` (CART walks on ``node < thr * vnf``, sequential stage
+sums, ``>= stage_thr``), ANDed with the static visit lattice.  Tilted
+nodes read the RSAT plane.
 
 ``haar_front`` runs ``csrc/haar_front.cu`` on a CUDA tensor and
 ``front_plain`` on a CPU tensor.  ``front_plain`` is the specification:
@@ -17,12 +18,13 @@ the same float32 operation order as the JAX XLA path, so the mask and
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import kernels
-from .stump_table import StumpTable
+from .cascade_table import CascadeTable
 
 __all__ = ["haar_front", "front_plain", "front_votes_plain", "vnf_plain"]
 
@@ -35,7 +37,7 @@ def _rect(p: torch.Tensor, ya: int, xa: int, yb: int, xb: int,
 
 
 def vnf_plain(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
-              table: StumpTable, hv: int, wv: int,
+              table: CascadeTable, hv: int, wv: int,
               dtype=torch.float32) -> torch.Tensor:
     """Variance factor map [B, hv, wv].
 
@@ -66,57 +68,92 @@ def vnf_plain(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
     return torch.where(var >= 0, root, torch.ones_like(var))
 
 
-def _stage_sum_dense(p: torch.Tensor, table: StumpTable, st: int,
-                     vnf: torch.Tensor, hv: int, wv: int) -> torch.Tensor:
-    """Stage sum at every position: node values in rect order, votes,
-    and a sequential sum in classifier order from 0 (pyramid.py:568-605)."""
+def _corner_sum(p: torch.Tensor, corners: np.ndarray, hv: int,
+                wv: int) -> torch.Tensor:
+    """Rect sum at every position from its four generic (y, x) corners,
+    signs + - - + (int32; exact for upright and tilted rects)."""
+    (y0, x0), (y1, x1), (y2, x2), (y3, x3) = (map(int, c) for c in corners)
+    return (p[:, y0:y0 + hv, x0:x0 + wv] - p[:, y1:y1 + hv, x1:x1 + wv]
+            - p[:, y2:y2 + hv, x2:x2 + wv] + p[:, y3:y3 + hv, x3:x3 + wv])
+
+
+def _clf_vote_dense(planes, table: CascadeTable, clf: int,
+                    vnf: torch.Tensor, hv: int, wv: int) -> torch.Tensor:
+    """A classifier's vote at every position (``_front_maps``,
+    pyramid.py:568-595): node values in rect order, ``cond = node <
+    thr * vnf``, and the walk from node 0 to the reached leaf's alpha."""
     dtype = vnf.dtype
-    n0, cnt = int(table.stage_node0[st]), int(table.stage_cnt[st])
-    ssum = torch.zeros_like(vnf)
-    for node in range(n0, n0 + cnt):
+
+    def node_value(t):
+        p = planes[1] if table.tilted[clf, t] else planes[0]
         nv = None
-        for k in range(int(table.n_rects[node])):
-            rs = _rect(p, *(int(v) for v in table.rects[node, k]),
-                       hv, wv).to(dtype)
-            term = rs * float(table.weights[node, k])
+        for k in range(int(table.n_rects[clf, t])):
+            rs = _corner_sum(p, table.corners[clf, t, k], hv, wv).to(dtype)
+            term = rs * float(table.weights[clf, t, k])
             nv = term if nv is None else nv + term
-        if nv is None:
-            nv = torch.zeros_like(vnf)
-        cond = nv < float(table.thr[node]) * vnf
-        vote = torch.full_like(vnf, float(table.a_left[node])).where(
-            cond, float(table.a_right[node]))
-        ssum = ssum + vote
+        return nv if nv is not None else torch.zeros_like(vnf)
+
+    nvals = [node_value(t) for t in range(int(table.clf_nodes[clf]))]
+
+    def walk(t):
+        cond = nvals[t] < float(table.thr[clf, t]) * vnf
+
+        def branch(link):
+            if link <= 0:
+                return torch.full_like(vnf, float(table.alpha[clf, -link]))
+            return walk(int(link))
+
+        return torch.where(cond, branch(int(table.left[clf, t])),
+                           branch(int(table.right[clf, t])))
+
+    return walk(0)
+
+
+def _stage_sum_dense(planes, table: CascadeTable, st: int,
+                     vnf: torch.Tensor, hv: int, wv: int) -> torch.Tensor:
+    """Stage sum at every position: a sequential sum of the classifiers'
+    votes in classifier order from 0 (pyramid.py:597-605)."""
+    c0, cnt = int(table.stage_clf0[st]), int(table.stage_cnt[st])
+    ssum = torch.zeros_like(vnf)
+    for clf in range(c0, c0 + cnt):
+        ssum = ssum + _clf_vote_dense(planes, table, clf, vnf, hv, wv)
     return ssum
 
 
 def front_plain(sum_: torch.Tensor, sq_hi: torch.Tensor,
-                sq_lo: torch.Tensor, visit: torch.Tensor, table: StumpTable,
-                front_k: int, dtype=torch.float32):
+                sq_lo: torch.Tensor, visit: torch.Tensor, table: CascadeTable,
+                front_k: int, dtype=torch.float32,
+                tilted: Optional[torch.Tensor] = None):
     """(front bool [B, Hv, Wv], vnf [B, Hv, Wv]) from padded planes
-    [B, Hp, Wp]; ``visit`` is the [Hv, Wv] scan lattice."""
+    [B, Hp, Wp]; ``visit`` is the [Hv, Wv] scan lattice and ``tilted`` the
+    RSAT plane (needed when a node is tilted)."""
     hv, wv = visit.shape
     vnf = vnf_plain(sum_, sq_hi, sq_lo, table, hv, wv, dtype)
-    return front_votes_plain(sum_, visit, table, front_k, vnf), vnf
+    return front_votes_plain(sum_, visit, table, front_k, vnf, tilted), vnf
 
 
 def front_votes_plain(sum_: torch.Tensor, visit: torch.Tensor,
-                      table: StumpTable, front_k: int,
-                      vnf: torch.Tensor) -> torch.Tensor:
+                      table: CascadeTable, front_k: int, vnf: torch.Tensor,
+                      tilted: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The front mask for a given vnf map: visit AND stages 0..front_k-1."""
     hv, wv = visit.shape
     front = visit.unsqueeze(0).expand(sum_.shape[0], hv, wv).clone()
     for st in range(front_k):
-        ssum = _stage_sum_dense(sum_, table, st, vnf, hv, wv)
+        ssum = _stage_sum_dense((sum_, tilted), table, st, vnf, hv, wv)
         front &= ssum >= float(table.stage_thr[st])
     return front
 
 
 def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
-               visit: torch.Tensor, table: StumpTable, front_k: int,
-               dtype=torch.float32):
+               visit: torch.Tensor, table: CascadeTable, front_k: int,
+               dtype=torch.float32, tilted: Optional[torch.Tensor] = None):
     """Front mask and vnf map.  CPU tensors run ``front_plain``; CUDA
-    tensors launch the kernel (float32 only)."""
-    planes = (sum_, sq_hi, sq_lo)
+    tensors launch the kernel (float32 only).  ``tilted`` is the RSAT
+    plane, required when the table has a tilted node."""
+    if table.has_tilted and tilted is None:
+        raise ValueError("the cascade has tilted features: pass the tilted "
+                         "plane")
+    planes = (sum_, sq_hi, sq_lo) + ((tilted,) if tilted is not None else ())
     if any(p.dtype != torch.int32 or p.ndim != 3 or not p.is_contiguous()
            or p.shape != sum_.shape or p.device != sum_.device
            for p in planes):
@@ -134,7 +171,8 @@ def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
     if not 0 <= front_k <= table.n_stages:
         raise ValueError(f"front_k {front_k} outside [0, {table.n_stages}]")
     if sum_.device.type == "cpu":
-        return front_plain(sum_, sq_hi, sq_lo, visit, table, front_k, dtype)
+        return front_plain(sum_, sq_hi, sq_lo, visit, table, front_k, dtype,
+                           tilted)
     if sum_.device.type != "cuda":
         raise ValueError(f"unsupported device {sum_.device}")
     if dtype != torch.float32:
@@ -145,7 +183,7 @@ def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
     ya, xa, yb, xb = table.equ
     err = kernels.lib().clfd_haar_front(
         sum_.data_ptr(), sq_hi.data_ptr(), sq_lo.data_ptr(),
-        visit.data_ptr(), tab.data_ptr(), front.data_ptr(), vnf.data_ptr(),
+        tilted.data_ptr() if tilted is not None else None, visit.data_ptr(), tab.data_ptr(), front.data_ptr(), vnf.data_ptr(),
         B, hv, wv, hp, wp, table.n_stages, front_k, ya, xa, yb, xb,
         ctypes.c_float(float(np.float32(table.inv_area))),
         torch.cuda.current_stream(sum_.device).cuda_stream)

@@ -19,13 +19,13 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .stump_table import StumpTable
+from .cascade_table import CascadeTable
 
 __all__ = ["haar_tail2", "tail2_plain"]
 
 
 def tail2_plain(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
-                table: StumpTable, front_k: int) -> torch.Tensor:
+                table: CascadeTable, front_k: int) -> torch.Tensor:
     """[B, cap, 4] tail rows, vectorised over survivors and a stage's
     nodes; the stage sum itself runs sequentially in classifier order."""
     B, hv, wv = vnf.shape
@@ -43,30 +43,34 @@ def tail2_plain(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
     alive = valid.clone()
     level = torch.full_like(svnf, float(table.n_stages))
     weight = torch.zeros_like(svnf)
+    # stumps: node 0 of each classifier, its leaves alpha[-left/-right]
+    clfs = np.arange(table.n_clf)
+    a_left = table.alpha[clfs, -table.left[:, 0]]
+    a_right = table.alpha[clfs, -table.right[:, 0]]
     for st in range(front_k, table.n_stages):
-        sl = slice(int(table.stage_node0[st]),
-                   int(table.stage_node0[st]) + int(table.stage_cnt[st]))
-        r = table.rects[sl].astype(np.int64)             # [cnt, 3, 4]
+        sl = slice(int(table.stage_clf0[st]),
+                   int(table.stage_clf0[st]) + int(table.stage_cnt[st]))
+        cor = table.corners[sl, 0].astype(np.int64)     # [cnt, 3, 4, 2]
 
-        def corner(yy, xx):
-            """Integral entries at corner (ya|yb, xa|xb) of every rect of
-            the stage for every survivor: int32 [B, cap, cnt, 3]."""
-            off = torch.from_numpy(r[..., yy] * wp + r[..., xx]).to(dev)
+        def corner(j):
+            """Integral entries at corner j of every rect of the stage for
+            every survivor: int32 [B, cap, cnt, 3]."""
+            off = torch.from_numpy(cor[..., j, 0] * wp + cor[..., j, 1]).to(dev)
             idx = (base[:, :, None, None] + off).reshape(B, -1)
             return flat.gather(1, idx).reshape(B, -1, *off.shape)
 
-        rs = (corner(0, 1) - corner(0, 3) - corner(2, 1)
-              + corner(2, 3)).to(dtype)                  # [B, cap, cnt, 3]
-        w = torch.from_numpy(table.weights[sl].astype(npdt)).to(dev)
+        rs = (corner(0) - corner(1) - corner(2)
+              + corner(3)).to(dtype)                     # [B, cap, cnt, 3]
+        w = torch.from_numpy(table.weights[sl, 0].astype(npdt)).to(dev)
         terms = rs * w
         nv = terms[..., 0]
         for k in range(1, 3):
             # rects past a node's count have weight 0 and corners (0, 0):
-            # adding their exact 0 leaves the value unchanged
+            # adding their exact 0 leaves the comparison unchanged
             nv = nv + terms[..., k]
-        thr = torch.from_numpy(table.thr[sl].astype(npdt)).to(dev)
-        a_l = torch.from_numpy(table.a_left[sl].astype(npdt)).to(dev)
-        a_r = torch.from_numpy(table.a_right[sl].astype(npdt)).to(dev)
+        thr = torch.from_numpy(table.thr[sl, 0].astype(npdt)).to(dev)
+        a_l = torch.from_numpy(a_left[sl].astype(npdt)).to(dev)
+        a_r = torch.from_numpy(a_right[sl].astype(npdt)).to(dev)
         vote = torch.where(nv < thr * svnf[..., None], a_l, a_r)
         ssum = torch.zeros_like(svnf)
         for j in range(vote.shape[-1]):
@@ -80,7 +84,7 @@ def tail2_plain(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
 
 
 def haar_tail2(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
-               table: StumpTable, front_k: int) -> torch.Tensor:
+               table: CascadeTable, front_k: int) -> torch.Tensor:
     """Tail rows for survivor slots ``surv_idx`` (int32 [B, cap]).  CPU
     tensors run ``tail2_plain``; CUDA tensors launch the kernel."""
     if sum_.dtype != torch.int32 or sum_.ndim != 3 \
@@ -102,6 +106,8 @@ def haar_tail2(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
                          f"grid plus the window")
     if not 0 <= front_k <= table.n_stages:
         raise ValueError(f"front_k {front_k} outside [0, {table.n_stages}]")
+    if table.stumps is None:
+        raise ValueError("tail2 takes stump cascades with upright features")
     if sum_.device.type == "cpu":
         return tail2_plain(sum_, vnf, surv_idx, table, front_k)
     if sum_.device.type != "cuda":
@@ -110,7 +116,7 @@ def haar_tail2(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
         raise NotImplementedError("the CUDA tail runs in float32 only")
     cap = surv_idx.shape[1]
     out = torch.empty((B, cap, 4), dtype=torch.float32, device=sum_.device)
-    tab = table.device_buffer(sum_.device)
+    tab = table.device_buffer(sum_.device, stumps=True)
     err = kernels.lib().clfd_haar_tail2(
         sum_.data_ptr(), vnf.data_ptr(), surv_idx.data_ptr(), tab.data_ptr(),
         out.data_ptr(), B, hv, wv, hp, wp, cap, table.n_stages, front_k,

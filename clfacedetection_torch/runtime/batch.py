@@ -26,7 +26,9 @@ __all__ = ["BatchedPyramidDetector"]
 
 class BatchedPyramidDetector:
     """Fixed-batch pyramid detector on one device; ``knobs`` go to
-    :class:`PyramidDetector` (``device``, ``front_stages``, ``cap``...)."""
+    :class:`PyramidDetector` (``device``, ``front_stages``, ``cap``,
+    ``strategy``...).  A batch is one pass of the pipeline whichever tail
+    the cascade takes."""
 
     def __init__(self, spec: CascadeSpec, image_shape: Tuple[int, int],
                  batch: int, **knobs):

@@ -1,10 +1,14 @@
 """The port's dense front (plain twin of csrc/haar_front.cu) against the
 JAX XLA front ``PyramidDetector._front_from_planes``, which the JAX
-package's CPU tests use as the Pallas front's specification.
+package's CPU tests use as the Pallas front's specification: stump
+cascades, CART trees (frontalface_alt2, T=2; eye_tree_eyeglasses, T=3
+with tilted nodes) and tilted stumps (mcs_nose).
 
 Tolerances: float32 mask and vnf BIT-EQUAL; float64 mask equal and vnf
 within rtol 1e-12 (XLA contracts the variance into an fma, the port's
-float64 path rounds separately).
+float64 path rounds separately).  The float32 vnf is JAX's fused form at
+every position: 150 recompilations of JAX's front in six loaded
+processes never gave the separately rounded value at any position.
 """
 
 import jax
@@ -31,6 +35,9 @@ CASES = [
     ("haarcascade_eye", (120, 160), 4),
     ("haarcascade_profileface", (120, 160), 4),
     ("haarcascade_frontalface_alt", (480, 640), 10),   # minSize 40x40
+    ("haarcascade_frontalface_alt2", (120, 160), 4),
+    ("haarcascade_mcs_nose", (120, 160), 4),
+    ("haarcascade_eye_tree_eyeglasses", (120, 160), 4),
 ]
 
 
@@ -51,17 +58,22 @@ def _pair(name, shape, front_k, jdt, tdt):
 def _run(jd, td, frame):
     planes = jax.jit(jd._prep_planes)(jnp.asarray(frame))
     jf = jax.jit(jd._front_from_planes)(*planes)
-    return jf, td._prep_planes(torch.from_numpy(frame)[None])
+    ii = td._prep_planes(torch.from_numpy(frame)[None])
+    if ii.tilted is not None:
+        np.testing.assert_array_equal(ii.tilted[0].numpy(),
+                                      np.asarray(planes[0]["tilted"]))
+    return jf, ii
 
 
 @pytest.mark.parametrize("name,shape,front_k", CASES)
 def test_front_f32_bit_equal(name, shape, front_k):
     jd, td = _pair(name, shape, front_k, jnp.float32, torch.float32)
     frame = _scene(shape)
-    jf, (s, hi, lo) = _run(jd, td, frame)
+    jf, ii = _run(jd, td, frame)
+    s, hi, lo, tilted = ii
     launches = tfront.haar_front.launches
     front, vnf = tfront.haar_front(s, hi, lo, td._visit, td.table,
-                                   td.front_k)
+                                   td.front_k, tilted=tilted)
     assert tfront.haar_front.launches == launches   # CPU: plain twin
     jfront = np.asarray(jf["front"])
     assert jfront.sum() > 0
@@ -71,7 +83,7 @@ def test_front_f32_bit_equal(name, shape, front_k):
     # votes on JAX's own vnf: a vote fault cannot hide behind the variance
     votes = tfront.front_votes_plain(
         s, td._visit, td.table, td.front_k,
-        torch.from_numpy(np.array(jf["vnf"]))[None])
+        torch.from_numpy(np.array(jf["vnf"]))[None], tilted)
     np.testing.assert_array_equal(votes.reshape(-1).numpy(), jfront)
 
 
@@ -79,7 +91,8 @@ def test_front_f32_bit_equal(name, shape, front_k):
 def test_front_f64(name, shape, front_k):
     jd, td = _pair(name, shape, front_k, jnp.float64, torch.float64)
     frame = _scene(shape)
-    jf, (s, hi, lo) = _run(jd, td, frame)
+    jf, ii = _run(jd, td, frame)
+    s, hi, lo, _ = ii
     front, vnf = tfront.haar_front(s, hi, lo, td._visit, td.table,
                                    td.front_k, torch.float64)
     assert vnf.dtype == torch.float64
@@ -92,7 +105,8 @@ def test_front_f64(name, shape, front_k):
 def test_front_rejects_bad_inputs():
     td = TDet(t_load_cascade("haarcascade_frontalface_alt"), (120, 160),
               device="cpu")
-    s, hi, lo = td._prep_planes(torch.zeros((1, 120, 160), dtype=torch.uint8))
+    s, hi, lo, _ = td._prep_planes(torch.zeros((1, 120, 160),
+                                               dtype=torch.uint8))
     with pytest.raises(ValueError):
         tfront.haar_front(s.to(torch.int64), hi, lo, td._visit, td.table, 2)
     with pytest.raises(ValueError):
@@ -100,3 +114,13 @@ def test_front_rejects_bad_inputs():
                           td.table, 2)
     with pytest.raises(ValueError):
         tfront.haar_front(s, hi, lo, td._visit.to(torch.uint8), td.table, 2)
+
+
+def test_front_needs_the_tilted_plane():
+    td = TDet(t_load_cascade("haarcascade_mcs_nose"), (60, 80),
+              device="cpu")
+    s, hi, lo, tilted = td._prep_planes(torch.zeros((1, 60, 80),
+                                                    dtype=torch.uint8))
+    assert tilted is not None and tilted.shape == s.shape
+    with pytest.raises(ValueError, match="tilted"):
+        tfront.haar_front(s, hi, lo, td._visit, td.table, 2)

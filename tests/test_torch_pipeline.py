@@ -4,7 +4,9 @@ the numpy oracle, on the CPU (the kernels' plain twins).
 Tolerances: float64 candidates box-for-box with JAX float64 and with
 ``reference_impl``; float32 candidates held to the docs/PARITY.md f32
 bounds (candidate-set Jaccard >= 0.995, grouped boxes matched 1:1 at
-IoU >= 0.9) against JAX float32 — on these scenes they are equal.
+IoU >= 0.9) against JAX float32 — on these scenes they are equal.  The
+v1 tail's cascades (CART trees, tilted features, stage trees) are held to
+the same bounds as tail2's.
 """
 
 import jax.numpy as jnp
@@ -19,7 +21,9 @@ from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_face, synth_scene
 
 import clfacedetection_torch as ct
-from clfacedetection_torch.ops import compact_kernel, haar_front, haar_tail2
+from clfacedetection_torch.detect import pyramid as tpyramid
+from clfacedetection_torch.ops import (compact_kernel, haar_front, haar_tail,
+                                       haar_tail2)
 
 # The suite runs in several worker processes at once; one torch thread
 # each keeps them from oversubscribing the cores.
@@ -27,7 +31,17 @@ torch.set_num_threads(1)
 
 SHAPE = (120, 160)
 LAUNCHES = (haar_front.haar_front, compact_kernel.compact,
-            haar_tail2.haar_tail2)
+            haar_tail2.haar_tail2, haar_tail.haar_tail)
+ZOO = ["haarcascade_eye", "haarcascade_eye_tree_eyeglasses",
+       "haarcascade_frontalface_alt", "haarcascade_frontalface_alt2",
+       "haarcascade_frontalface_alt_tree", "haarcascade_frontalface_default",
+       "haarcascade_fullbody", "haarcascade_lefteye_2splits",
+       "haarcascade_lowerbody", "haarcascade_mcs_eyepair_big",
+       "haarcascade_mcs_eyepair_small", "haarcascade_mcs_lefteye",
+       "haarcascade_mcs_mouth", "haarcascade_mcs_nose",
+       "haarcascade_mcs_righteye", "haarcascade_mcs_upperbody",
+       "haarcascade_profileface", "haarcascade_righteye_2splits",
+       "haarcascade_upperbody"]
 
 
 @pytest.fixture(scope="module")
@@ -169,12 +183,99 @@ def test_cascade_classifier_and_detect_objects(face):
         [tuple(vars(r).values()) for r in jr]
 
 
-@pytest.mark.parametrize("name", ["haarcascade_frontalface_alt2",
-                                  "haarcascade_mcs_nose",
-                                  "haarcascade_frontalface_alt_tree"])
-def test_unported_cascades_raise(name):
+@pytest.mark.parametrize("name,max_stages,front", [
+    ("haarcascade_frontalface_alt2", None, 4),          # CART
+    ("haarcascade_mcs_nose", None, 4),                  # tilted
+    ("haarcascade_frontalface_alt_tree", 20, 4),        # stage tree
+])
+def test_v1_tail_candidates_with_jax(face, name, max_stages, front):
+    td = ct.PyramidDetector(ct.load_cascade(name), SHAPE,
+                            max_stages=max_stages, front_stages=front,
+                            device="cpu")
+    assert not td.use_tail2
+    jd = JDet(j_load_cascade(name), SHAPE, max_stages=max_stages,
+              front_stages=front, dtype=jnp.float32)
+    tres, jres = td.detect(face, min_neighbors=1), \
+        jd.detect(face, min_neighbors=1)
+    ts, js = _set(tres.candidates), _set(jres.candidates)
+    assert len(js) > 0
+    assert len(ts & js) / len(ts | js) >= 0.995
+    assert len(tres.boxes) == len(jres.boxes)
+    for a in tres.boxes:
+        assert max(_iou(a, b) for b in jres.boxes) >= 0.9
+
+
+def test_v1_tail_f64_box_for_box_with_jax_and_oracle(face):
+    name = "haarcascade_eye_tree_eyeglasses"           # CART, T=3, tilted
+    td = ct.PyramidDetector(ct.load_cascade(name), SHAPE, max_stages=6,
+                            front_stages=2, dtype=torch.float64,
+                            device="cpu")
+    tc, tov = td.candidates(face)
+    jd = JDet(j_load_cascade(name), SHAPE, max_stages=6, front_stages=2,
+              dtype=jnp.float64)
+    jc, jov = jd.candidates(face)
+    gold = detect_multi_scale_reference(face, j_load_cascade(name),
+                                        min_neighbors=0, max_stages=6,
+                                        mode="scale_image")
+    assert not tov and not jov and len(tc) > 0
+    assert _set(tc) == _set(jc) == _set(gold)
+
+
+def test_block_strategy_equals_per_stage(face):
+    spec = ct.load_cascade("haarcascade_frontalface_alt")
+    per = ct.PyramidDetector(spec, SHAPE, max_stages=10, device="cpu")
+    blk = ct.PyramidDetector(spec, SHAPE, max_stages=10, strategy="block",
+                             device="cpu")
+    assert per.use_tail2 and not blk.use_tail2
+    pc, _ = per.candidates(face)
+    bc, _ = blk.candidates(face)
+    assert len(pc) > 0
+    np.testing.assert_array_equal(bc, pc)
+    tr = ct.detect_objects(face, spec, min_window_size=(20, 20),
+                           flags=ct.api.CLOD_BLOCK_IMPLEMENTATION,
+                           device="cpu")
+    jr = japi.detect_objects(face, j_load_cascade(
+        "haarcascade_frontalface_alt"), min_window_size=(20, 20),
+        flags=japi.CLOD_BLOCK_IMPLEMENTATION)
+    assert [tuple(vars(r).values()) for r in tr] == \
+        [tuple(vars(r).values()) for r in jr]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.PyramidDetector(ct.load_cascade(name), SHAPE, device="cpu")
+        ct.PyramidDetector(spec, SHAPE, strategy="direct", device="cpu")
+    with pytest.raises(NotImplementedError, match="direct"):
+        ct.detect_objects(face, spec, flags=0, device="cpu")
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_every_zoo_cascade_detects(name):
+    """All 19 cascades build and run through the entry points (tiny frame,
+    three stages), with the tail the JAX package would take."""
+    frame = synth_face((60, 80))
+    spec = ct.load_cascade(name)
+    det = ct.PyramidDetector(spec, (60, 80), max_stages=3, front_stages=1,
+                             device="cpu")
+    c = det.compiled
+    assert det.use_tail2 == (det.table.T == 1 and not c.is_tree
+                             and not c.has_tilted and spec.window_w < 32)
+    res = det.detect(frame, min_neighbors=0)
+    assert res.candidates.ndim == 2 and res.candidates.shape[1] == 4
+    cls = ct.CascadeClassifier(spec, device="cpu")
+    np.testing.assert_array_equal(
+        cls.detect_multi_scale(frame, min_neighbors=0, max_stages=3,
+                               front_stages=1), res.boxes)
+
+
+def test_entry_points_need_a_card_unless_told(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ct.load_cascade("haarcascade_frontalface_alt")
+    face = synth_face(SHAPE)
+    for build in (lambda: ct.PyramidDetector(spec, SHAPE),
+                  lambda: ct.BatchedPyramidDetector(spec, SHAPE, batch=2),
+                  lambda: ct.CascadeClassifier(spec).detect_multi_scale(face),
+                  lambda: ct.detect_objects(face, spec)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tpyramid.default_device()
 
 
 def test_float64_refused_on_cuda_device():

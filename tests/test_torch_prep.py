@@ -67,9 +67,26 @@ def test_canvas_planes_bit_equal():
     jd = JDet(j_load_cascade(name), frame.shape, use_pallas_front=False)
     td = TDet(t_load_cascade(name), frame.shape, device="cpu")
     jplanes, jhi, jlo = jax.jit(jd._prep_planes)(jnp.asarray(frame))
-    ts, thi, tlo = td._prep_planes(torch.from_numpy(frame)[None])
+    ts, thi, tlo, tt = td._prep_planes(torch.from_numpy(frame)[None])
+    assert tt is None                   # no tilted feature in this cascade
     np.testing.assert_array_equal(ts[0].numpy(), np.asarray(jplanes["sum"]))
     np.testing.assert_array_equal(thi[0].numpy(), np.asarray(jhi))
     np.testing.assert_array_equal(tlo[0].numpy(), np.asarray(jlo))
     np.testing.assert_array_equal(
         td._visit.numpy(), jd.plan.visit_mask(jd.w0, jd.h0))
+
+
+@pytest.mark.parametrize("shape", [(57, 91), (120, 37)])
+def test_tilted_integral_bit_equal(rng, shape):
+    """The port's sheared-cumsum RSAT against JAX's row recurrence, one
+    frame and a batch of three."""
+    img = rng.integers(0, 256, (3,) + shape, dtype=np.uint8)
+    want = np.asarray(jintegral.tilted_integral(jnp.asarray(img)))
+    got = tintegral.tilted_integral(torch.from_numpy(img))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tintegral.tilted_integral(torch.from_numpy(img[1])).numpy(), want[1])
+    ii = tintegral.integral_images(torch.from_numpy(img), 5, with_tilted=True)
+    np.testing.assert_array_equal(ii.tilted[:, :-5, :-5].numpy(), want)
+    assert not ii.tilted[:, -5:].any() and not ii.tilted[:, :, -5:].any()

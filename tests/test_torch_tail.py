@@ -1,0 +1,257 @@
+"""The port's v1 tail (plain twin of csrc/haar_tail.cu) and its cascade
+table against the JAX package.
+
+* Table: ``CascadeTable`` holds JAX ``_build_clf_tables`` at scale 1, and
+  its packed buffer decodes back to the same numbers.
+* Node values: JAX's own ``_tail_accept_chunk`` arithmetic (window patches
+  cut from JAX's planes, corrected, times ``_sten_sum``/``_sten_tilt``
+  with ``Precision.HIGHEST``) against ``tail_values_plain``.  The port
+  differences the four corners in int32, so its values are the exact node
+  values rounded a few times: against float64 node values from the same
+  corners it holds rtol 1e-4 with atol 1e-4 of each node's largest
+  magnitude (measured: at most 3.7e-6 of that magnitude).  The JAX values
+  carry the f32 matrix product's rounding of the patch products, which
+  cancel in a rect sum (up to 5e-3 of a node's largest magnitude on these
+  scenes, mostly on tilted nodes, whose patches get only the corner-only
+  correction).  Against JAX the port is therefore held to rtol 1e-4 plus
+  that product's own error bound, 2^-20 * sum |patch * stencil| (16 ulps
+  of the absolute products, for at most 12 nonzero terms per node).
+* Decisions: ``tail_rows`` on those values against the JAX XLA tail
+  ``_tail_device_xla`` built with ``output_levels=True``, at tail2's
+  bounds (alive-set Jaccard >= 0.995, >= 99.5% of survivors with the same
+  exit stage); the stage tree's accept only.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clfacedetection_tpu.detect import detector as jdetector
+from clfacedetection_tpu.detect.pyramid import PyramidDetector as JDet
+from clfacedetection_tpu.models import compile as jcompile
+from clfacedetection_tpu.models import load_cascade as j_load_cascade
+from clfacedetection_tpu.utils import synth_scene
+
+from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
+from clfacedetection_torch.detect.pyramid import tail_rows
+from clfacedetection_torch.models import load_cascade as t_load_cascade
+from clfacedetection_torch.ops import cascade_table as ctab
+from clfacedetection_torch.ops import haar_tail as ttail
+
+# The suite runs in several worker processes at once; one torch thread
+# each keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
+SHAPE = (120, 160)
+CASES = [                             # (cascade, max_stages, front)
+    ("haarcascade_frontalface_alt2", None, 3),     # CART, T=2
+    ("haarcascade_mcs_nose", None, 3),             # tilted stumps
+    ("haarcascade_eye_tree_eyeglasses", None, 3),  # CART, T=3, tilted
+    ("haarcascade_mcs_eyepair_big", None, 3),      # 45x11 window, tilted
+    ("haarcascade_frontalface_alt_tree", 16, 5),   # stage tree
+]
+
+
+@pytest.mark.parametrize("name", ["haarcascade_frontalface_alt2",
+                                  "haarcascade_eye_tree_eyeglasses",
+                                  "haarcascade_frontalface_alt_tree"])
+def test_cascade_table_holds_jax_tables(name):
+    jc = jcompile.compile_cascade(j_load_cascade(name))
+    jt = jdetector._build_clf_tables(jc, [1.0])
+    td = TDet(t_load_cascade(name), SHAPE, device="cpu")
+    tab = td.table
+    assert (tab.T, tab.n_clf) == (jt.T, jt.n_clf)
+    np.testing.assert_array_equal(tab.clf_nodes, jt.clf_valid_nodes)
+    np.testing.assert_array_equal(tab.alpha, jt.alpha)
+    valid = np.arange(jt.T)[None] < jt.clf_valid_nodes[:, None]
+    for mine, theirs in ((tab.left, jt.left), (tab.right, jt.right),
+                         (tab.thr, jt.threshold), (tab.tilted, jt.use_tilted)):
+        np.testing.assert_array_equal(mine[valid], theirs[valid])
+    np.testing.assert_array_equal(tab.stage_thr, jc.stage_threshold)
+    # the rects of weight != 0, in order, with JAX's corners and weights
+    for c in range(0, jt.n_clf, 7):
+        for t in range(int(jt.clf_valid_nodes[c])):
+            keep = np.nonzero(jt.weight[0, c, t])[0]
+            nr = int(tab.n_rects[c, t])
+            assert nr == len(keep)
+            np.testing.assert_array_equal(tab.weights[c, t, :nr],
+                                          jt.weight[0, c, t, keep])
+            np.testing.assert_array_equal(tab.corners[c, t, :nr, :, 0],
+                                          jt.corner_y[0, c, t, keep])
+            np.testing.assert_array_equal(tab.corners[c, t, :nr, :, 1],
+                                          jt.corner_x[0, c, t, keep])
+    # the packed buffer decodes back to the arrays
+    S = tab.n_stages
+    st = tab.packed[:S * ctab.STAGE_WORDS].reshape(S, ctab.STAGE_WORDS)
+    np.testing.assert_array_equal(st[:, 0], tab.stage_clf0)
+    np.testing.assert_array_equal(st[:, 1], tab.stage_cnt)
+    np.testing.assert_array_equal(st[:, 2].view(np.float32), tab.stage_thr)
+    assert (st[:, 3] == tab.clf_words).all()
+    assert tab.clf_words == ctab.CLF_HEAD + tab.T * ctab.NODE_WORDS
+    cl = tab.packed[S * ctab.STAGE_WORDS:].reshape(tab.n_clf, tab.clf_words)
+    np.testing.assert_array_equal(cl[:, 0], tab.clf_nodes)
+    np.testing.assert_array_equal(cl[:, 1:2 + tab.T].view(np.float32),
+                                  tab.alpha)
+    nd = cl[:, ctab.CLF_HEAD:].reshape(tab.n_clf, tab.T, ctab.NODE_WORDS)
+    np.testing.assert_array_equal(nd[..., 0], tab.n_rects)
+    np.testing.assert_array_equal(nd[..., 1], tab.tilted)
+    np.testing.assert_array_equal(nd[..., 2], tab.left)
+    np.testing.assert_array_equal(nd[..., 3], tab.right)
+    np.testing.assert_array_equal(nd[..., 4].view(np.float32), tab.thr)
+    np.testing.assert_array_equal(nd[..., 5:8].view(np.float32), tab.weights)
+    np.testing.assert_array_equal(nd[..., 8:].reshape(tab.corners.shape),
+                                  tab.corners)
+
+
+def _jax_tail(name, max_stages, front, frame):
+    jd = JDet(j_load_cascade(name), SHAPE, front_stages=front,
+              max_stages=max_stages, dtype=jnp.float32, output_levels=True,
+              use_pallas_front=False, cap=4096)
+    f = jax.jit(jd._front_device)(jnp.asarray(frame))
+    surv, n_surv = jax.jit(jd._compact_device)(f["front"])
+    assert 0 < int(n_surv) <= jd.cap
+    jt = jax.jit(jd._tail_device_xla)(f["planes"], f["vnf"], surv, n_surv)
+    return jd, f, np.asarray(surv), int(n_surv), jt
+
+
+def _jax_node_values(jd, planes, sy, sx):
+    """Node values as ``_tail_accept_chunk`` computes them
+    (pyramid.py:676-714), and the absolute-product sums of that matrix
+    product (its rounding-error scale)."""
+    ph, pw = jd.h0 + 1, jd.w0 + 1
+    n = len(sy)
+
+    def patch(img, full):
+        img = np.asarray(img)
+        raw = np.stack([img[y:y + ph, x:x + pw] for y, x in zip(sy, sx)])
+        r = raw - raw[:, :1, :1]
+        if full:
+            r = r - r[:, :1, :] - r[:, :, :1]
+        return r.reshape(n, -1).astype(np.float32)
+
+    dot = lambda a, b: np.asarray(jnp.dot(
+        a, b, precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32))
+    p_sum = patch(planes["sum"], True)
+    vals = dot(p_sum, jd._sten_sum)
+    mag = np.abs(p_sum).astype(np.float64) @ np.abs(jd._sten_sum)
+    if jd._sten_tilt is not None:
+        p_tilt = patch(planes["tilted"], False)
+        vals = vals + dot(p_tilt, jd._sten_tilt)
+        mag += np.abs(p_tilt).astype(np.float64) @ np.abs(jd._sten_tilt)
+    return vals, mag
+
+
+def _exact_node_values(td, ii, sy, sx):
+    """float64 node values from the int32 corners of the port's planes."""
+    tab = td.table
+    nn = tab.n_clf * tab.T
+    cor = tab.corners.reshape(nn, 3, 4, 2)
+    w = tab.weights.reshape(nn, 3).astype(np.float64)
+    tl = tab.tilted.reshape(nn)
+    s = ii.sum[0].numpy().astype(np.int64)
+    t = ii.tilted[0].numpy().astype(np.int64) if ii.tilted is not None \
+        else s
+    out = np.zeros((len(sy), nn))
+    for k in range(3):
+        for j, sign in enumerate((1, -1, -1, 1)):
+            yy = sy[:, None] + cor[None, :, k, j, 0]
+            xx = sx[:, None] + cor[None, :, k, j, 1]
+            out += sign * np.where(tl[None], t[yy, xx], s[yy, xx]) \
+                * w[None, :, k]
+    return out
+
+
+@pytest.mark.parametrize("name,max_stages,front", CASES)
+def test_tail_values_and_decisions_against_jax(name, max_stages, front):
+    frame = synth_scene(SHAPE, faces=((60, 80, 40.0),), seed=9)
+    jd, f, surv, n, jt = _jax_tail(name, max_stages, front, frame)
+    td = TDet(t_load_cascade(name), SHAPE, front_stages=jd.front_k,
+              max_stages=max_stages, device="cpu")
+    assert td.front_k == jd.front_k and not td.use_tail2
+    ii = td._prep_planes(torch.from_numpy(frame)[None])
+    surv_t = torch.from_numpy(surv.astype(np.int32))[None]
+    launches = ttail.haar_tail.launches
+    vals = ttail.haar_tail(ii.sum, ii.tilted, surv_t, td.hv, td.wv,
+                           td.table)[0]
+    assert ttail.haar_tail.launches == launches        # CPU: plain twin
+    nn = td.table.n_clf * td.table.T
+    assert vals.shape == (jd.cap, nn) and vals.dtype == torch.float32
+    assert not vals[n:].any()                          # pad slots are 0
+    tv = vals[:n].numpy().astype(np.float64)
+    sy, sx = surv[:n] // td.wv, surv[:n] % td.wv
+
+    exact = _exact_node_values(td, ii, sy, sx)
+    scale = np.abs(exact).max(axis=0)
+    assert (np.abs(tv - exact) <= 1e-4 * np.abs(exact) + 1e-4 * scale).all()
+
+    jv, mag = _jax_node_values(jd, f["planes"], sy, sx)
+    jv, mag = jv[:, :nn], mag[:, :nn]        # JAX keeps truncated stages
+    assert (np.abs(tv - jv) <= 1e-4 * np.abs(jv) + 2.0 ** -20 * mag).all()
+
+    valid = (surv_t >= 0) & (surv_t < td.hv * td.wv)
+    svnf = torch.from_numpy(np.asarray(f["vnf"]).reshape(-1)[
+        np.where(surv < td.hv * td.wv, surv, 0)])[None]
+    rows = tail_rows(vals[None], svnf, valid, td.table, td.front_k,
+                     td.paths if td.is_tree else None)[0]
+    alive = rows[:n, 1].numpy() > 0
+    ok = np.asarray(jt["ok"])[:n]
+    union = (alive | ok).sum()
+    assert union == 0 or (alive & ok).sum() / union >= 0.995
+    if not td.is_tree:
+        same = rows[:n, 2].numpy().astype(np.int32) == \
+            np.asarray(jt["level"])[:n]
+        assert same.mean() >= 0.995, f"{(~same).sum()} of {n} levels differ"
+    np.testing.assert_array_equal(
+        rows[n:].numpy(),
+        np.tile(np.float32([0, 0, td.n_stages, 0]), (jd.cap - n, 1)))
+
+
+def test_tail_rejects_bad_inputs():
+    td = TDet(t_load_cascade("haarcascade_mcs_nose"), (60, 80),
+              device="cpu")
+    ii = td._prep_planes(torch.zeros((1, 60, 80), dtype=torch.uint8))
+    idx = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="tilted"):
+        ttail.haar_tail(ii.sum, None, idx, td.hv, td.wv, td.table)
+    with pytest.raises(ValueError):
+        ttail.haar_tail(ii.sum, ii.tilted, idx.long(), td.hv, td.wv,
+                        td.table)
+    with pytest.raises(ValueError):
+        ttail.haar_tail(ii.sum[:, :-30], ii.tilted[:, :-30], idx, td.hv,
+                        td.wv, td.table)
+
+
+def test_chunking_keeps_every_bit(monkeypatch):
+    """Node values chunked over nodes and votes chunked over stage groups
+    give the same bits as one chunk each."""
+    from clfacedetection_torch.detect import pyramid as tpyramid
+    name = "haarcascade_eye_tree_eyeglasses"
+    frame = synth_scene(SHAPE, faces=((60, 80, 40.0),), seed=9)
+    td = TDet(t_load_cascade(name), SHAPE, front_stages=3, max_stages=8,
+              device="cpu")
+    ii = td._prep_planes(torch.from_numpy(frame)[None])
+    n = td.hv * td.wv
+    idx = np.random.default_rng(3).choice(n, 300).astype(np.int32)
+    idx[-20:] = n                                     # pad slots
+    surv = torch.from_numpy(idx)[None]
+    valid = (surv >= 0) & (surv < n)
+    svnf = torch.rand(1, 300, generator=torch.Generator().manual_seed(0))
+
+    def run():
+        vals = ttail.tail_values_plain(ii.sum, ii.tilted, surv, td.hv,
+                                       td.wv, td.table)
+        return vals, tail_rows(vals.clone(), svnf, valid, td.table,
+                               td.front_k)
+
+    v1, r1 = run()
+    monkeypatch.setattr(ttail, "_CHUNK_ELEMS", 300 * 12 * 5)
+    monkeypatch.setattr(tpyramid, "_VOTE_CHUNK_ELEMS", 300 * 3 * 40)
+    v2, r2 = run()
+    assert 0 < r1[0, :, 1].sum() < 280 and valid.sum() == 280
+    np.testing.assert_array_equal(v1.numpy().view(np.int32),
+                                  v2.numpy().view(np.int32))
+    np.testing.assert_array_equal(r1.numpy().view(np.int32),
+                                  r2.numpy().view(np.int32))

@@ -56,7 +56,7 @@ def test_tail2_equals_jax_xla_tail(name, front_k, kind):
     td = TDet(t_load_cascade(name), shape, front_stages=jd.front_k,
               device="cpu")
     assert td.front_k == jd.front_k
-    s, _, _ = td._prep_planes(torch.from_numpy(frame)[None])
+    s = td._prep_planes(torch.from_numpy(frame)[None]).sum
     vnf = torch.from_numpy(np.array(f["vnf"]))[None]
     surv_t = torch.from_numpy(np.array(surv, np.int32))[None]
     launches = ttail.haar_tail2.launches
@@ -95,7 +95,7 @@ def test_tail2_float64_on_cpu():
     name, shape = "haarcascade_frontalface_alt", (120, 160)
     td = TDet(t_load_cascade(name), shape, front_stages=3, max_stages=10,
               dtype=torch.float64, device="cpu")
-    s, hi, lo = td._prep_planes(torch.from_numpy(synth_face(shape))[None])
+    s, hi, lo, _ = td._prep_planes(torch.from_numpy(synth_face(shape))[None])
     from clfacedetection_torch.ops.haar_front import front_plain
     front, vnf = front_plain(s, hi, lo, td._visit, td.table, td.front_k,
                              torch.float64)
@@ -105,3 +105,43 @@ def test_tail2_float64_on_cpu():
     rows32 = ttail.haar_tail2(s, vnf.float(), idx, td.table, td.front_k)
     agree = (rows[0, :, 1] == rows32[0, :, 1]).double().mean()
     assert agree >= 0.995
+
+
+@pytest.mark.parametrize("name", sorted({c for c, _, _ in CASES})
+                         + ["haarcascade_frontalface_alt2",
+                            "haarcascade_mcs_nose"])
+def test_stump_view_decodes_to_the_table(name):
+    """tail2's compact stump view holds the table's numbers: per stump its
+    upright rects as (ya, xa, yb, xb), weights, threshold and both leaf
+    values; CART and tilted cascades have none."""
+    from clfacedetection_torch.ops import cascade_table as ctab
+    tab = TDet(t_load_cascade(name), (60, 80), device="cpu").table
+    if tab.T != 1 or tab.has_tilted:
+        assert tab.stumps is None
+        with pytest.raises(ValueError, match="stump view"):
+            tab.device_buffer("cpu", stumps=True)
+        return
+    S, C, W = tab.n_stages, tab.n_clf, ctab.STAGE_WORDS
+    st = tab.stumps[:S * W].reshape(S, W)
+    np.testing.assert_array_equal(st[:, :3], tab.packed[:S * W].reshape(
+        S, W)[:, :3])
+    assert not st[:, 3].any()
+    nd = tab.stumps[S * W:].reshape(C, ctab.STUMP_WORDS)
+    np.testing.assert_array_equal(nd[:, 0], tab.n_rects[:, 0])
+    cor = tab.corners[:, 0]                             # [C, 3, 4, 2]
+    np.testing.assert_array_equal(
+        nd[:, 1:13].reshape(C, 3, 4),
+        np.stack([cor[:, :, 0, 0], cor[:, :, 0, 1], cor[:, :, 3, 0],
+                  cor[:, :, 3, 1]], axis=-1))
+    # the other two corners are those of an upright rect
+    np.testing.assert_array_equal(cor[:, :, 1], np.stack(
+        [cor[:, :, 0, 0], cor[:, :, 3, 1]], axis=-1))
+    np.testing.assert_array_equal(cor[:, :, 2], np.stack(
+        [cor[:, :, 3, 0], cor[:, :, 0, 1]], axis=-1))
+    f = nd[:, 13:19].view(np.float32)
+    np.testing.assert_array_equal(f[:, :3], tab.weights[:, 0])
+    np.testing.assert_array_equal(f[:, 3], tab.thr[:, 0])
+    idx = np.arange(C)
+    np.testing.assert_array_equal(f[:, 4], tab.alpha[idx, -tab.left[:, 0]])
+    np.testing.assert_array_equal(f[:, 5], tab.alpha[idx, -tab.right[:, 0]])
+    assert not nd[:, 19].any()
