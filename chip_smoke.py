@@ -20,6 +20,17 @@ points and times kernels and paths with CUDA events:
   VGA sweep of the 15 cascades this path serves against the CPU; a
   batch-8 ``detect_stream`` of frontalface_alt2 against single frames.
 
+The front is held bit-equal at batch 1 and 8 and at a ragged grid (batch
+2); its per-stage prefix times and the lane work of the old and the new
+lane assignment come from its own masks.  The compaction is held
+bit-equal at batch 1 and 8, all-false, all-true, ragged and overflowing,
+and replayed from a CUDA graph, and timed two ways beside
+``torch.nonzero_static``: CUDA events around back-to-back calls (call ms,
+host included) and device time alone (a CUDA graph of the calls replayed,
+and ``torch.profiler`` kernel durations).  The profiler runs last: once
+it has run, every later launch of the process costs more host time
+(measured by timing frontalface_alt's batch-1 pipeline again after it).
+
 Each phase prints one line; the line before the last is the JSON record
 of the kernels, the last ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before those lines.  Without a CUDA device, or without the
@@ -153,12 +164,20 @@ def stage_ops(table):
                      for c0, n in zip(table.stage_clf0, table.stage_cnt)])
 
 
-def front_bound(det, planes, visit, front_k, table) -> dict:
+def front_masks(planes, visit, table, front_k):
+    """The kernel's masks at depths 0..front_k: depth k is the visited
+    windows that pass stages 0..k-1, the windows that enter stage k."""
+    from clfacedetection_torch.ops.haar_front import haar_front
+    s, hi, lo, tilted = planes
+    return [haar_front(s, hi, lo, visit, table, k, tilted=tilted)[0]
+            for k in range(front_k + 1)]
+
+
+def front_bound(planes, visit, table, masks) -> dict:
     """Bytes: every plane read once, the visit mask, the mask and vnf
     written once, the table.  Operations: vnf at every position, then
     each stage's root nodes at the positions that enter it (counted from
-    the kernel's own masks at depths 0..front_k-1)."""
-    from clfacedetection_torch.ops.haar_front import haar_front
+    the kernel's own masks)."""
     s, hi, lo, tilted = planes
     B = s.shape[0]
     n = B * visit.numel()
@@ -167,10 +186,101 @@ def front_bound(det, planes, visit, front_k, table) -> dict:
         + table.packed.nbytes
     ops_st = stage_ops(table)
     ops = 20.0 * n
-    for st in range(front_k):
-        m, _ = haar_front(s, hi, lo, visit, table, st, tilted=tilted)
-        ops += float(m.sum()) * ops_st[st]
+    for st in range(len(masks) - 1):
+        ops += float(masks[st].sum()) * ops_st[st]
     return bound(nbytes, ops)
+
+
+def lane_work(table, masks) -> dict:
+    """Lane-classifiers that the front runs, from its masks (a classifier
+    is a stump for stump cascades): ``rows`` for one thread a position and
+    a warp on 32 columns of a row, walking a stage while any lane lives
+    (the first design); ``tiles`` for a warp on a 32x32 tile that runs
+    each stage over its live positions in chunks of 32 (this design);
+    ``live`` for the live windows alone."""
+    import torch
+    import torch.nn.functional as F
+    cnt = table.stage_cnt.astype(float)
+    rows = tiles = live = 0.0
+    for st in range(len(masks) - 1):
+        m = masks[st]
+        B, hv, wv = m.shape
+        m = F.pad(m.to(torch.int32), (0, -wv % 32, 0, -hv % 32))
+        H, W = m.shape[1:]
+        per_tile = m.reshape(B, H // 32, 32, W // 32, 32).sum((2, 4))
+        warps_live = (m.reshape(B, H, W // 32, 32).sum(3) > 0).sum()
+        rows += 32 * cnt[st] * float(warps_live)
+        tiles += 32 * cnt[st] * float(((per_tile + 31) // 32).sum())
+        live += cnt[st] * float(m.sum())
+    return dict(rows=rows, tiles=tiles, live=live,
+                rows_live_share=live / max(rows, 1.0),
+                tiles_live_share=live / max(tiles, 1.0))
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` alone: a CUDA graph of ``reps`` calls
+    (warmed up on the capture stream first), replayed five times between
+    two CUDA events."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (5 * reps)
+
+
+def profiled(fn, reps: int) -> dict:
+    """Device ms per call of ``fn`` alone from ``torch.profiler``: the
+    durations of its kernels (and memsets) summed over ``reps`` calls, and
+    their count per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    need(len(ev) > 0, "the profiler saw no device work")
+    us = sum(e.time_range.end - e.time_range.start for e in ev)
+    return dict(device_ms=us / 1e3 / reps, kernels_per_call=len(ev) / reps)
+
+
+def nonzero_static(flags, cap):
+    import torch
+    return lambda: torch.nonzero_static(flags[0], size=cap)
+
+
+def compaction_times(flags, cap) -> dict:
+    """The compaction and ``torch.nonzero_static`` on the same flags, each
+    timed with CUDA events around 20 back-to-back calls (host included)
+    and from a replayed CUDA graph (device alone); and the compaction of
+    one 16,384-flag tile, the kernel's fixed cost."""
+    from clfacedetection_torch.ops.compact_kernel import compact
+    nz = nonzero_static(flags, cap)
+    one = flags[:1, :16384].contiguous()
+    return dict(ms=timed(lambda: compact(flags, cap), 20),
+                library_ms=timed(nz, 20),
+                graph_ms=graph_ms(lambda: compact(flags, cap), 20),
+                library_graph_ms=graph_ms(nz, 20),
+                one_tile_graph_ms=graph_ms(lambda: compact(one, cap), 20))
 
 
 def survivor_bases(surv, hv, wv, hp, wp):
@@ -302,9 +412,105 @@ def stencil_matmul(table, ii, surv, hv, wv):
     return ms, out
 
 
-def check_kernels(det, gray) -> dict:
+def check_front_batch(det, frames) -> float:
+    """The front at batch B bit-equal to the plain front; returns its ms
+    per frame."""
+    from clfacedetection_torch.ops.haar_front import front_plain, haar_front
+    ii = det._prep_planes(frames)
+    args = (ii.sum, ii.sq_hi, ii.sq_lo, det._visit, det.table, det.front_k)
+    fk, vk = haar_front(*args, tilted=ii.tilted)
+    fp, vp = front_plain(*args, tilted=ii.tilted)
+    need(bits_equal(fk, fp) and bits_equal(vk, vp),
+         f"front at batch {frames.shape[0]} differs from the plain front")
+    ms = timed(lambda: haar_front(*args, tilted=ii.tilted), 10) \
+        / frames.shape[0]
+    say("front_batch", batch=frames.shape[0], survivors=int(fk.sum()),
+        equal_to_plain=True, ms_per_frame=ms)
+    return ms
+
+
+def check_front_ragged(spec) -> None:
+    """The front on a grid that is no multiple of the tile on either axis
+    (a 479x641 pair's canvas, cut to 549x709 positions), batch 2."""
+    import numpy as np
+    import clfacedetection_torch as ct
+    from clfacedetection_torch.ops.haar_front import front_plain, haar_front
+    shape = (479, 641)
+    det = ct.PyramidDetector(spec, shape, device="cuda", **KNOBS)
+    ii = det._prep_planes(det.put(np.stack([frame(sd, shape)
+                                            for sd in (3, 11)])))
+    hv, wv = det.hv - 13, det.wv - 59
+    need(hv % 32 and wv % 32, f"grid {hv}x{wv} is not ragged")
+    py, px = ii.sum.shape[1] - det.hv, ii.sum.shape[2] - det.wv
+    s, hi, lo = (p[:, :hv + py, :wv + px].contiguous() for p in ii[:3])
+    visit = det._visit[:hv, :wv].contiguous()
+    args = (s, hi, lo, visit, det.table, det.front_k)
+    fk, vk = haar_front(*args)
+    fp, vp = front_plain(*args)
+    need(bits_equal(fk, fp) and bits_equal(vk, vp),
+         "front on the ragged grid differs from the plain front")
+    say("front_ragged", grid=f"{hv}x{wv}", batch=2,
+        plane=f"{s.shape[1]}x{s.shape[2]}", survivors=int(fk.sum()),
+        equal_to_plain=True)
+
+
+def check_compaction(flags1, flags8, cap) -> None:
+    """The compaction bit-equal to the plain one, with the true count: at
+    batch 1 and 8, all-false, all-true, flag counts that are no multiple
+    of the 16,384-flag tile (and of 16, which takes the byte loads),
+    forced overflow, and replayed from a CUDA graph."""
+    import torch
+    from clfacedetection_torch.ops.compact_kernel import (compact,
+                                                          compact_plain)
+    gen = torch.Generator(device=flags1.device)
+    gen.manual_seed(7)
+
+    def rand(B, n, rate):
+        return torch.rand((B, n), generator=gen, device=flags1.device) < rate
+
+    n8 = flags8.shape[1]
+    n_true = int(flags1.sum())
+    cases = [
+        ("batch1", flags1, cap),
+        ("overflow", flags1, max(1, n_true // 2)),
+        ("batch8", flags8, cap),
+        ("all_false", torch.zeros_like(flags8), cap),
+        ("all_true", torch.ones_like(flags8), cap),
+        ("ragged_n", rand(3, 16384 * 5 + 1232, 0.01), 1000),
+        ("n_not_16", rand(2, 100003, 0.3), 40000),
+        ("tiny_n", rand(3, 5, 0.5), 8),
+    ]
+    for what, f, c in cases:
+        ik, nk = compact(f, c)
+        ip, np_ = compact_plain(f, c)
+        need(bits_equal(ik, ip) and bits_equal(nk, np_)
+             and bits_equal(nk, f.sum(1, dtype=torch.int32)),
+             f"compaction ({what}) differs from the plain one")
+    need(int(compact(flags1, cases[1][2])[1][0]) > cases[1][2],
+         "the overflowing compaction hides the overflow")
+    # a graph replays the same launch: the scratch must clean itself
+    ip, np_ = compact_plain(flags8, cap)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        compact(flags8, cap)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        gi, gn = compact(flags8, cap)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        need(bits_equal(gi, ip) and bits_equal(gn, np_),
+             "compaction replayed from a CUDA graph differs")
+    say("compact_cases", cases=",".join(c[0] for c in cases) + ",graph",
+        n=n8, equal_to_plain=True)
+
+
+def check_kernels(det, gray, stack8):
     """Each kernel against its plain version on the card, at the main
-    path's shapes; returns per-kernel error and times."""
+    path's shapes; returns per-kernel error and times, and the survivor
+    flags that the compaction took."""
     import torch
     from clfacedetection_torch.ops.compact_kernel import (compact,
                                                           compact_plain)
@@ -319,39 +525,38 @@ def check_kernels(det, gray) -> dict:
     torch.cuda.synchronize()
     need(bits_equal(fk, fp), "front mask differs from its plain version")
     need(bits_equal(vk, vp), "front vnf differs from its plain version")
+    masks = front_masks(ii, det._visit, det.table, det.front_k)
+    need(bits_equal(masks[-1], fk), "front masks disagree")
+    prefix = [timed(lambda k=k: haar_front(s, hi, lo, det._visit, det.table,
+                                           k), 10)
+              for k in range(1, det.front_k + 1)]
     out = {"haar_front": dict(
         max_abs_err=max(max_abs_err(vk, vp), max_abs_err(fk, fp)),
         ms=timed(lambda: haar_front(*args), 20),
         plain_ms=timed(lambda: front_plain(*args), 2),
-        **front_bound(det, ii, det._visit, det.front_k, det.table),
-        library_ms=None)}
+        **front_bound(ii, det._visit, det.table, masks),
+        library_ms=None, prefix_ms=prefix,
+        lane_classifiers=lane_work(det.table, masks))}
     say("kernel", name="haar_front", grid=f"{det.hv}x{det.wv}",
         survivors=int(fk.sum()), **out["haar_front"])
+    frames8 = det.put(stack8)
+    out["haar_front"]["batch8_ms_per_frame"] = check_front_batch(det,
+                                                                 frames8)
+    check_front_ragged(det.spec)
 
     flags = fk.reshape(1, -1)
-    n_true = int(flags.sum())
+    fk8, _ = haar_front(*det._prep_planes(frames8)[:3], det._visit,
+                        det.table, det.front_k)
+    check_compaction(flags, fk8.reshape(fk8.shape[0], -1), det.cap)
     ik, nk = compact(flags, det.cap)
     ip, np_ = compact_plain(flags, det.cap)
-    need(bits_equal(ik, ip) and bits_equal(nk, np_),
-         "compaction differs from its plain version")
-    need(int(nk[0]) == n_true, "compaction count is not the true count")
-    small = max(1, n_true // 2)                # forced overflow
-    ok_, on = compact(flags, small)
-    op, opn = compact_plain(flags, small)
-    need(bits_equal(ok_, op) and bits_equal(on, opn) and int(on[0]) > small,
-         "overflowing compaction differs or hides the overflow")
-    nz = (lambda: torch.nonzero_static(flags[0], size=det.cap)) \
-        if hasattr(torch, "nonzero_static") else \
-        (lambda: torch.nonzero(flags[0]))
-    lib_ms = timed(nz, 20)
     out["compact"] = dict(
         max_abs_err=max_abs_err(ik, ip),
-        ms=timed(lambda: compact(flags, det.cap), 20),
         plain_ms=timed(lambda: compact_plain(flags, det.cap), 5),
         **bound(flags.numel() + det.cap * 4 + 4, float(flags.numel())),
-        library_ms=lib_ms)
-    say("kernel", name="compact", flags=flags.shape[1], n=n_true,
-        cap=det.cap, overflow_cap=small, **out["compact"])
+        **compaction_times(flags, det.cap))
+    say("kernel", name="compact", flags=flags.shape[1], n=int(nk[0]),
+        cap=det.cap, **out["compact"])
 
     targs = (s, vk, ik, det.table, det.front_k)
     rk = haar_tail2(*targs)
@@ -366,7 +571,7 @@ def check_kernels(det, gray) -> dict:
         library_ms=None)
     say("kernel", name="haar_tail2", slots=det.cap,
         accepted=int((rk[..., 1] > 0).sum()), **out["haar_tail2"])
-    return out
+    return out, flags
 
 
 def check_v1(det, gray) -> dict:
@@ -388,12 +593,13 @@ def check_v1(det, gray) -> dict:
     name = det.spec.name
     need(bits_equal(fk, fp), f"{name}: front mask differs from plain")
     need(bits_equal(vk, vp), f"{name}: front vnf differs from plain")
+    masks = front_masks(ii, det._visit, det.table, det.front_k)
     front = dict(
         max_abs_err=max(max_abs_err(vk, vp), max_abs_err(fk, fp)),
         ms=timed(lambda: haar_front(*args, tilted=ii.tilted), 20),
         plain_ms=timed(lambda: front_plain(*args, tilted=ii.tilted), 2),
-        **front_bound(det, ii, det._visit, det.front_k, det.table),
-        library_ms=None)
+        **front_bound(ii, det._visit, det.table, masks),
+        library_ms=None, lane_classifiers=lane_work(det.table, masks))
     n_true = int(fk.sum())
     need(n_true <= det.cap, f"{name}: {n_true} survivors overflow the cap "
          f"{det.cap} (check after the main path has regrown it)")
@@ -529,6 +735,10 @@ def main() -> int:
     kernels.lib()
     say("build", seconds=round(time.perf_counter() - t0, 3),
         flags=" ".join(kernels.NVCC_FLAGS))
+    for line in kernels.build_log().splitlines():
+        if "entry function" in line or "registers" in line \
+                or "spill" in line:
+            print(f"[ptxas] {line.strip()}", flush=True)
 
     # ---- tail2's path: frontalface_alt ------------------------------
     spec = ct.load_cascade(CASCADE)
@@ -536,7 +746,11 @@ def main() -> int:
     det = ct.PyramidDetector(spec, SHAPE, device="cuda", **KNOBS)
     say("plan", levels=det.n_levels, canvas=f"{det.hv}x{det.wv}",
         visited=det.n_visit, front_k=det.front_k, cap=det.cap)
-    results = check_kernels(det, gray)
+    import numpy as np
+    seeds = [3, 11, 17, 29]
+    stack = {sd: frame(sd) for sd in seeds + [5, 13, 19, 23]}
+    results, flags1 = check_kernels(det, gray,
+                                    np.stack(list(stack.values())))
 
     res, launches = drive(det, gray)
     need(all(launches[k] > 0 for k in ("haar_front", "compact",
@@ -559,10 +773,6 @@ def main() -> int:
     need(vo == co and vc.shape == cc.shape and bool((vc == cc).all()),
          "VGA candidates on the card differ from the CPU plain path")
     say("vga", candidates=len(vc), equal_to_cpu=True)
-
-    import numpy as np
-    seeds = [3, 11, 17, 29]
-    stack = {sd: frame(sd) for sd in seeds}
 
     def stream_equals_singles(spec, det, what):
         """Batched stream: every frame equal to the single-frame path."""
@@ -673,6 +883,23 @@ def main() -> int:
         phases[str(b)] = breakdown(a2det, fr)
         say("phases", cascade=a2, batch=b, **phases[str(b)])
     ms_per_frame[a2] = path_times(a2det, a2b, a2, plain_reps=1)
+
+    # the profiler last (see the head of this file): the compaction's and
+    # nonzero_static's device time from their kernels' durations, then
+    # frontalface_alt's batch-1 pipeline timed again
+    comp = results["compact"]
+    comp.update(profiled(lambda: compact(flags1, det.cap), 20))
+    comp.update({f"library_{k}": v for k, v in
+                 profiled(nonzero_static(flags1, det.cap), 20).items()})
+    fr1 = det.put(np.stack([stack[seeds[0]]]))
+    after = timed(lambda: det._detect_device(fr1, det.cap), 10)
+    ms_per_frame[CASCADE]["1"]["kernel_after_profiler"] = after
+    say("profiled", name="compact", device_ms=comp["device_ms"],
+        kernels_per_call=comp["kernels_per_call"],
+        library_device_ms=comp["library_device_ms"],
+        library_kernels_per_call=comp["library_kernels_per_call"])
+    say("time", cascade=CASCADE, batch=1, after_profiler=True,
+        kernel_ms_per_frame=round(after, 4))
 
     entry = dict(results)
     entry["haar_tail"] = v1[a2]["haar_tail"]

@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles every ``clfacedetection_torch/csrc/*.cu`` into one
-shared library with a plain C interface, at first use, into
-``clfacedetection_torch/build/`` under a name keyed by a hash of the
-sources and flags; ``ctypes`` loads it.  Each C entry point launches on
-the stream it is given and returns ``cudaGetLastError()``.
+``nvcc`` compiles every ``clfacedetection_torch/csrc/*.cu`` at first
+use, one process per source, all started together, and links the objects
+into one shared library with a plain C interface in
+``clfacedetection_torch/build/``, under a name keyed by a hash of the
+sources and flags; ``ctypes`` loads it.  ``ptxas`` reports each kernel's
+registers and shared memory into ``<library>.log`` (``build_log()``).
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``.
 
 Flags: ``sm_90a`` (Hopper); ``-fmad=false`` and no fast-math, so that no
 multiply-add is contracted behind the source's back (the kernels spell
@@ -22,25 +25,25 @@ import subprocess
 import threading
 from typing import Optional
 
-__all__ = ["NVCC_FLAGS", "lib", "check"]
+__all__ = ["NVCC_FLAGS", "lib", "check", "build_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = _ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                      "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_path: Optional[str] = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "clfd_haar_front": [_P] * 8 + [_I] * 11 + [_F, _P],
-    "clfd_compact_count": [_P, _P, _I, _I, _I, _P],
-    "clfd_compact_scan": [_P, _P, _P, _I, _I, _P],
-    "clfd_compact_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "clfd_haar_front": [_P] * 8 + [_I] * 15 + [_F, _P],
+    "clfd_compact": [_P] * 4 + [_I] * 5 + [_P],
     "clfd_haar_tail2": [_P] * 5 + [_I] * 8 + [_P],
     "clfd_haar_tail": [_P] * 5 + [_I] * 11 + [_P],
 }
@@ -63,6 +66,21 @@ def _sources():
                   + glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
+def _run(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(procs, names):
+    """Wait for every process, then raise on the first that failed."""
+    outs = [p.communicate() for p in procs]
+    for p, name, (out, err) in zip(procs, names, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({p.returncode}):\n"
+                               f"{out}\n{err}")
+    return [out + err for out, err in outs]
+
+
 def _build() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
@@ -72,23 +90,37 @@ def _build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}"
     cu = [p for p in _sources() if p.endswith(".cu")]
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cu,
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cu]
+    procs = [_run([_nvcc()] + NVCC_FLAGS + ["-c", "-o", o, p])
+             for p, o in zip(cu, objs)]
+    logs = _finish(procs, [os.path.basename(p) for p in cu])
+    _finish([_run([_nvcc()] + _ARCH + ["-shared", "-o", f"{tmp}.tmp"]
+                  + objs)], ["the link"])
+    for o in objs:
+        os.remove(o)
+    with open(f"{out}.log", "w") as f:
+        f.write("".join(logs))
+    os.replace(f"{tmp}.tmp", out)
     return out
+
+
+def build_log() -> str:
+    """What ``ptxas`` said of each kernel (registers, shared memory,
+    spills) when the library was built."""
+    lib()
+    with open(f"{_lib_path}.log") as f:
+        return f.read()
 
 
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first call."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(_build())
+            _lib_path = _build()
+            handle = ctypes.CDLL(_lib_path)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes

@@ -78,6 +78,10 @@ class CascadeTable:
     stumps: Optional[np.ndarray]  # int32 [S*STAGE_WORDS + C*STUMP_WORDS],
     #                               None unless stumps with upright rects
     _dev: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # table words the front kernel stages, by front_k (ops/haar_front.py
+    # front_launch)
+    front_words: Dict[int, int] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def n_stages(self) -> int:

@@ -13,6 +13,11 @@ nodes read the RSAT plane.
 ``front_plain`` on a CPU tensor.  ``front_plain`` is the specification:
 the same float32 operation order as the JAX XLA path, so the mask and
 ``vnf`` are bit-equal to JAX's and to the kernel's.
+
+The kernel gives each block of 8 warps a 64x128 tile and runs each stage
+over the tile's live positions only, with the planes and the front
+stages' table in shared memory; ``front_launch`` decides, once per table
+and depth, whether the table fits there.
 """
 
 from __future__ import annotations
@@ -24,9 +29,53 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .cascade_table import CascadeTable
+from .cascade_table import STAGE_WORDS, STUMP_WORDS, CascadeTable
 
-__all__ = ["haar_front", "front_plain", "front_votes_plain", "vnf_plain"]
+__all__ = ["haar_front", "front_plain", "front_votes_plain", "vnf_plain",
+           "front_table_words", "front_smem_bytes", "front_launch"]
+
+# csrc/haar_front.cu: a block of 8 warps owns BLOCK_Y x BLOCK_X positions;
+# its shared memory holds row masks and two lists of uint16 positions,
+# then the staged table, then the plane tiles with their window halo
+BLOCK_Y, BLOCK_X = 64, 128
+LIST_SMEM = BLOCK_Y * 4 * 4 + 2 * BLOCK_Y * BLOCK_X * 2
+MAX_SMEM = 232448          # shared memory a block may take on the H100
+
+
+def front_table_words(table: CascadeTable, front_k: int,
+                      stump_view: bool) -> int:
+    """Words of the table that the front reads: every stage record, then
+    the classifiers up to the last one of stages ``0..front_k-1`` (in the
+    stump view or the packed records).  A multiple of four, so the kernel
+    stages it in 16-byte copies."""
+    n = max((int(table.stage_clf0[s] + table.stage_cnt[s])
+             for s in range(front_k)), default=0)
+    stride = STUMP_WORDS if stump_view else table.clf_words
+    return table.n_stages * STAGE_WORDS + n * stride
+
+
+def front_smem_bytes(table: CascadeTable, table_words: int) -> int:
+    """Dynamic shared memory of one block of the kernel with
+    ``table_words`` of the table staged (its launch computes the same)."""
+    pitch = (BLOCK_X + table.max_dx) | 1
+    planes = 2 if table.has_tilted else 1
+    return LIST_SMEM + table_words * 4 \
+        + planes * (BLOCK_Y + table.max_dy) * pitch * 4
+
+
+def front_launch(table: CascadeTable, front_k: int) -> int:
+    """Words of the table that the kernel stages in shared memory: the
+    front's part of the stump view where the cascade has one, else of the
+    packed table; 0 where it does not fit beside the planes, and the
+    kernel reads the table through L1.  Worked out once per table and
+    ``front_k``."""
+    words = table.front_words.get(front_k)
+    if words is None:
+        words = front_table_words(table, front_k, table.stumps is not None)
+        if front_smem_bytes(table, words) > MAX_SMEM:
+            words = 0
+        table.front_words[front_k] = words
+    return words
 
 
 def _rect(p: torch.Tensor, ya: int, xa: int, yb: int, xb: int,
@@ -179,12 +228,18 @@ def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
         raise NotImplementedError("the CUDA front runs in float32 only")
     front = torch.empty((B, hv, wv), dtype=torch.bool, device=sum_.device)
     vnf = torch.empty((B, hv, wv), dtype=torch.float32, device=sum_.device)
-    tab = table.device_buffer(sum_.device)
+    stump = table.stumps is not None
+    words = front_launch(table, front_k)
+    tab = table.device_buffer(sum_.device, stumps=stump)
     ya, xa, yb, xb = table.equ
+    # the kernel stages the tilted plane when it gets one, as
+    # front_smem_bytes counts it: only for a cascade with tilted nodes
     err = kernels.lib().clfd_haar_front(
         sum_.data_ptr(), sq_hi.data_ptr(), sq_lo.data_ptr(),
-        tilted.data_ptr() if tilted is not None else None, visit.data_ptr(), tab.data_ptr(), front.data_ptr(), vnf.data_ptr(),
-        B, hv, wv, hp, wp, table.n_stages, front_k, ya, xa, yb, xb,
+        tilted.data_ptr() if table.has_tilted else None, visit.data_ptr(),
+        tab.data_ptr(), front.data_ptr(), vnf.data_ptr(),
+        B, hv, wv, hp, wp, table.n_stages, front_k, words, table.max_dy,
+        table.max_dx, ya, xa, yb, xb, int(stump),
         ctypes.c_float(float(np.float32(table.inv_area))),
         torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_front", err)

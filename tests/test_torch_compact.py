@@ -68,3 +68,30 @@ def test_compact_rejects_bad_inputs():
         tcompact.compact(torch.zeros((1, 10), dtype=torch.uint8), 4)
     with pytest.raises(ValueError):
         tcompact.compact(torch.zeros((1, 10), dtype=torch.bool), 0)
+
+
+def test_scratch_cache_reuses_by_key():
+    """The compaction's scratch is kept per (device, stream, B, n) key:
+    the same key gets the same zeroed buffer, another stream another one.
+    No buffer is ever evicted, however many keys come, since a CUDA graph
+    may still point at it; and none is made during graph capture.  CPU
+    tensors and fake keys stand in for the card's."""
+    cache = tcompact.ScratchCache()
+    words = tcompact.scratch_words(2, 3 * tcompact.TILE + 1)
+    assert words == 2 * 4 + 2           # four tiles a frame, then counters
+    key = ("cuda:0", 111, 2, 12289)
+    a = cache.get(key, words, "cpu")
+    assert a.dtype == torch.int64 and a.numel() == words
+    assert not a.any()
+    assert cache.get(key, words, "cpu", capturing=True) is a
+    b = cache.get(("cuda:0", 222, 2, 12289), words, "cpu")   # other stream
+    assert b is not a and len(cache) == 2
+    for stream in range(1000, 1040):                         # many keys
+        cache.get(("cuda:0", stream, 8, 12289), words * 4, "cpu")
+    assert len(cache) == 42
+    assert cache.get(key, words, "cpu") is a                 # still held
+    with pytest.raises(RuntimeError, match="capture"):
+        cache.get(("cuda:0", 333, 2, 12289), words, "cpu", capturing=True)
+    assert len(cache) == 42
+    with pytest.raises(ValueError):
+        cache.get(key, words + 1, "cpu")

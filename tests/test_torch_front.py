@@ -11,6 +11,8 @@ every position: 150 recompilations of JAX's front in six loaded
 processes never gave the separately rounded value at any position.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from clfacedetection_tpu.utils import synth_scene
 
 from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
 from clfacedetection_torch.models import load_cascade as t_load_cascade
+from clfacedetection_torch.models.zoo import artifact_dir
 from clfacedetection_torch.ops import haar_front as tfront
 
 # The suite runs in several worker processes at once; one torch thread
@@ -124,3 +127,74 @@ def test_front_needs_the_tilted_plane():
     assert tilted is not None and tilted.shape == s.shape
     with pytest.raises(ValueError, match="tilted"):
         tfront.haar_front(s, hi, lo, td._visit, td.table, 2)
+
+
+@pytest.mark.parametrize("name,view", [
+    ("haarcascade_frontalface_alt", True),          # stumps, stump view
+    ("haarcascade_frontalface_alt", False),
+    ("haarcascade_frontalface_alt2", False),        # CART, T=2
+    ("haarcascade_eye_tree_eyeglasses", False),     # CART, T=3, tilted
+])
+def test_front_table_prefix_decodes_to_the_table(name, view):
+    """The words the front stages in shared memory hold every stage record
+    and every classifier of stages 0..front_k-1, and decode to the
+    table's fields."""
+    td = TDet(t_load_cascade(name), (120, 160), device="cpu")
+    t, fk = td.table, td.front_k
+    words = tfront.front_table_words(t, fk, view)
+    assert words % 4 == 0
+    buf = (t.stumps if view else t.packed)[:words]
+    S = t.n_stages
+    st = buf[:S * 4].reshape(S, 4)
+    np.testing.assert_array_equal(st[:, 0], t.stage_clf0)
+    np.testing.assert_array_equal(st[:, 1], t.stage_cnt)
+    np.testing.assert_array_equal(st[:, 2].view(np.float32), t.stage_thr)
+    stride = 20 if view else t.clf_words
+    clfs = buf[S * 4:].reshape(-1, stride)
+    n = int(max(t.stage_clf0[s] + t.stage_cnt[s] for s in range(fk)))
+    assert len(clfs) == n            # the last front classifier, no more
+    for i in (0, n - 1):
+        if view:
+            assert clfs[i, 0] == t.n_rects[i, 0]
+            np.testing.assert_array_equal(clfs[i, 13:16].view(np.float32),
+                                          t.weights[i, 0])
+            assert clfs[i, 16].view(np.float32) == t.thr[i, 0]
+            continue
+        assert clfs[i, 0] == t.clf_nodes[i]
+        np.testing.assert_array_equal(clfs[i, 1:2 + t.T].view(np.float32),
+                                      t.alpha[i])
+        nd = clfs[i, 8:].reshape(t.T, 32)
+        np.testing.assert_array_equal(nd[:, 0], t.n_rects[i])
+        np.testing.assert_array_equal(nd[:, 1], t.tilted[i])
+        np.testing.assert_array_equal(nd[:, 2], t.left[i])
+        np.testing.assert_array_equal(nd[:, 3], t.right[i])
+        np.testing.assert_array_equal(nd[:, 4].view(np.float32), t.thr[i])
+        np.testing.assert_array_equal(nd[:, 8:].reshape(t.T, 3, 4, 2),
+                                      t.corners[i])
+
+
+def test_front_design_fits_shared_memory():
+    """For every cascade of the zoo a block's lists and plane tiles fit in
+    its shared memory; the front stages' table is staged beside them
+    where it fits (in the stump view for stump cascades) and read through
+    L1 where it does not; the choice is made once per table and depth."""
+    zoo = sorted(p.stem for p in Path(artifact_dir()).glob("*.npz"))
+    assert len(zoo) == 19
+    staged = {}
+    for name in zoo:
+        td = TDet(t_load_cascade(name), (120, 160), front_stages=10,
+                  device="cpu")
+        t, fk = td.table, td.front_k
+        assert tfront.front_smem_bytes(t, 0) <= tfront.MAX_SMEM, name
+        full = tfront.front_table_words(t, fk, t.stumps is not None)
+        words = tfront.front_launch(t, fk)
+        assert words in (0, full), name
+        assert (words == full) == (tfront.front_smem_bytes(t, full)
+                                   <= tfront.MAX_SMEM), name
+        assert t.front_words == {fk: words}
+        staged[name] = words
+    # alt: 22 stage records and the 384 stumps of stages 0-9, 80 bytes each
+    assert staged["haarcascade_frontalface_alt"] == 22 * 4 + 384 * 20
+    # mcs_upperbody: tilted (two plane tiles) and a 137 KB table prefix
+    assert staged["haarcascade_mcs_upperbody"] == 0
+    assert sum(w == 0 for w in staged.values()) == 4
