@@ -18,7 +18,16 @@ points and times kernels and paths with CUDA events:
   their plain versions, ``detect`` equal to the plain path on the card;
   ``strategy="block"`` on frontalface_alt equal to the per-stage path; a
   VGA sweep of the 15 cascades this path serves against the CPU; a
-  batch-8 ``detect_stream`` of frontalface_alt2 against single frames.
+  batch-8 ``detect_stream`` of frontalface_alt2 against single frames;
+* the JAX bench's scene: ``photo_scene`` at 1080p through frontalface_alt's
+  ``detect``, equal to the plain path, its front survivors printed beside
+  the JAX's 18,388;
+* the chain microbenchmark (``mb_vpu3``): the chain kernel bit-equal to its
+  plain version at float32 [2272, 384] -> [2272, 1280] for its five bodies
+  at 4 and 16 trips, then the tool ``clfacedetection_torch.tools.mb_vpu3``
+  with every count from 0: the op rates, the SASS of the trip loops
+  (checked to hold the source's slice reads and float operations), the
+  bf16 product chain and the front sweep on ``photo_scene``.
 
 The front is held bit-equal at batch 1 and 8 and at a ragged grid (batch
 2); its per-stage prefix times and the lane work of the old and the new
@@ -65,6 +74,8 @@ KERNELS = [
      "clfacedetection_tpu/ops/haar_tail2.py:137"),
     ("haar_tail", "clfacedetection_torch/csrc/haar_tail.cu",
      "clfacedetection_tpu/ops/haar_tail.py:116"),
+    ("chain", "clfacedetection_torch/csrc/mb_chain.cu",
+     "scripts/mb_vpu3.py:40"),
 ]
 V1_CASCADES = ("haarcascade_frontalface_alt2",
                "haarcascade_eye_tree_eyeglasses",
@@ -81,9 +92,15 @@ V1_SERVED = (
 SWEEP_KNOBS = dict(scale_factor=1.1, min_size=(40, 40), front_stages=10,
                    cap=4096)
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and 32-bit operations/s
-# outside the tensor cores (the kernels' integer and float32 arithmetic)
+# outside the tensor cores (the kernels' integer and float32 arithmetic;
+# the data sheet counts an FMA as two, so adds, multiplies, compares and
+# selects issue at half this rate: the mb_vpu3 phase measures them)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+# the JAX bench's survivors on photo_scene at 1080p, front_k 10 (TPU v5e
+# run of the JAX package, docs/PERF.md:57)
+JAX_PHOTO_SURVIVORS = 18388
+CHAIN_TRIPS = (4, 16)
 
 
 class SmokeFailure(Exception):
@@ -507,6 +524,32 @@ def check_compaction(flags1, flags8, cap) -> None:
         n=n8, equal_to_plain=True)
 
 
+def unfused_front(det, ii, mask) -> dict:
+    """The front's survivors with the variance rounded as the TPU rounds it
+    (``win_sq * inv`` and ``mean * mean`` each rounded, then subtracted:
+    no fma, where XLA:CPU, the plain front and the kernel fuse), the same
+    votes; and the windows where that mask differs from ``mask``."""
+    import numpy as np
+    import torch
+    from clfacedetection_torch.ops.haar_front import _rect, front_votes_plain
+    t = det.table
+    hv, wv = det._visit.shape
+    ya, xa, yb, xb = t.equ
+
+    def rect(p):
+        return _rect(p, ya, xa, yb, xb, hv, wv).float()
+
+    inv = float(np.float32(t.inv_area))
+    mean = rect(ii.sum) * inv
+    var = (rect(ii.sq_hi) * 256.0 + rect(ii.sq_lo)) * inv - mean * mean
+    vnf = torch.where(var >= 0, torch.sqrt(var.clamp(min=0)),
+                      torch.ones_like(var))
+    m = front_votes_plain(ii.sum, det._visit, t, det.front_k, vnf)
+    diff = (m != mask).nonzero()
+    return dict(survivors=int(m.sum()), n_differ=int(diff.shape[0]),
+                differ=diff[:8].tolist())
+
+
 def check_kernels(det, gray, stack8):
     """Each kernel against its plain version on the card, at the main
     path's shapes; returns per-kernel error and times, and the survivor
@@ -636,6 +679,58 @@ def check_v1(det, gray) -> dict:
     return out
 
 
+# shared loads of one trip and element in the source, and the fewest float
+# instructions that its operations can compile to (compare and select may
+# merge into one instruction)
+CHAIN_SASS_MIN = {"slices": (32, 33), "arith": (1, 48), "cmpsel": (1, 32),
+                  "rect": (32, 48)}
+
+
+def check_chain() -> dict:
+    """The chain kernel bit-equal to its plain version at the JAX's full
+    shape, float32 [2272, 384] -> [2272, 1280], for every body at 4 and 16
+    trips; the plain version's time and the bound of each.  Bytes: x read
+    once, the output written once; operations: the JAX's ops a trip for
+    every element and trip."""
+    import numpy as np
+    import torch
+    from clfacedetection_torch.ops.chain import (BODIES, GH, GW, IN_W,
+                                                 OPS_PER_TRIP, chain,
+                                                 chain_plain)
+    x = torch.from_numpy(np.random.default_rng(11).random(
+        (GH, IN_W)).astype(np.float32)).cuda()
+    out = {}
+    for body in BODIES:
+        for tr in CHAIN_TRIPS:
+            k = chain(x, body, tr)
+            p = chain_plain(x, body, tr)
+            torch.cuda.synchronize()
+            need(bits_equal(k, p), f"chain {body} at {tr} trips differs "
+                 f"from its plain version")
+            out[f"{body}@{tr}"] = dict(
+                max_abs_err=max_abs_err(k, p),
+                plain_ms=timed(lambda: chain_plain(x, body, tr), 3),
+                **bound(x.numel() * 4 + GH * GW * 4,
+                        float(GH * GW * OPS_PER_TRIP[body] * tr)))
+    say("kernel", name="chain", shape=f"{GH}x{IN_W}->{GH}x{GW}",
+        bodies=",".join(BODIES), trips=CHAIN_TRIPS, equal_to_plain=True,
+        bounds=json.dumps({k: round(v["bound_ms"], 5)
+                           for k, v in out.items()}))
+    return out
+
+
+def check_sass(sass: dict) -> None:
+    """Every slice read and chain operation of the source inside the
+    kernel's trip loop (counted from its SASS by the tool)."""
+    for body, (loads, floats) in CHAIN_SASS_MIN.items():
+        c = sass.get(body)
+        need(c is not None, f"no SASS for chain body {body}")
+        need(c["shared_loads"] == loads and c["float_ops"] >= floats,
+             f"chain {body}: the trip loop holds {c['shared_loads']} shared "
+             f"loads and {c['float_ops']} float instructions an element, "
+             f"the source {loads} and at least {floats}")
+
+
 def breakdown(det, frames) -> dict:
     """Device ms per frame of each phase of the v1 path, from CUDA events
     recorded between the phases of one pass (one synchronise)."""
@@ -702,8 +797,10 @@ def main() -> int:
     from clfacedetection_torch.ops.haar_front import haar_front
     from clfacedetection_torch.ops.haar_tail import haar_tail
     from clfacedetection_torch.ops.haar_tail2 import haar_tail2
+    from clfacedetection_torch.ops.chain import chain
     counters = {"haar_front": haar_front, "compact": compact,
-                "haar_tail2": haar_tail2, "haar_tail": haar_tail}
+                "haar_tail2": haar_tail2, "haar_tail": haar_tail,
+                "chain": chain}
 
     def drive(det, gray):
         """One detect() through the entry point with every count from 0;
@@ -755,7 +852,7 @@ def main() -> int:
     res, launches = drive(det, gray)
     need(all(launches[k] > 0 for k in ("haar_front", "compact",
                                        "haar_tail2"))
-         and launches["haar_tail"] == 0,
+         and launches["haar_tail"] == 0 and launches["chain"] == 0,
          f"tail2's path did not run its kernels: {launches}")
     need(not res.survivor_overflow, "survivor cap overflowed")
     need(len(res.candidates) > 0, "no candidates at 1080p")
@@ -764,6 +861,31 @@ def main() -> int:
         candidates=len(res.candidates), launches=json.dumps(launches),
         boxes=json.dumps(res.boxes.tolist()),
         neighbors=json.dumps(res.neighbors.tolist()))
+
+    # the JAX bench's scene: photo_scene, the survivors beside the JAX's
+    from clfacedetection_torch.utils import photo_scene
+    photo = photo_scene(SHAPE)
+    pres, photo_launches = drive(det, photo)
+    need(all(photo_launches[k] > 0 for k in ("haar_front", "compact",
+                                             "haar_tail2"))
+         and photo_launches["haar_tail"] == 0
+         and photo_launches["chain"] == 0,
+         f"photo_scene did not run tail2's path: {photo_launches}")
+    need(not pres.survivor_overflow, "photo_scene: survivor cap overflowed")
+    same_as_plain(det, photo, pres, "1080p photo_scene")
+    pii = det._prep_planes(det.put(photo))
+    pmask = haar_front(pii.sum, pii.sq_hi, pii.sq_lo, det._visit,
+                       det.table, det.front_k)[0]
+    photo_surv = int(pmask.sum())
+    unfused = unfused_front(det, pii, pmask)
+    del pii, pmask
+    say("photo_scene", shape=f"{SHAPE[0]}x{SHAPE[1]}", front_k=det.front_k,
+        survivors=photo_surv, jax_survivors=JAX_PHOTO_SURVIVORS,
+        survivors_equal=photo_surv == JAX_PHOTO_SURVIVORS,
+        unfused_variance=json.dumps(unfused),
+        candidates=len(pres.candidates), launches=json.dumps(photo_launches),
+        boxes=json.dumps(pres.boxes.tolist()),
+        neighbors=json.dumps(pres.neighbors.tolist()))
 
     vga = frame(5, VGA)
     vc, vo = ct.PyramidDetector(spec, VGA, device="cuda", **KNOBS) \
@@ -884,6 +1006,41 @@ def main() -> int:
         say("phases", cascade=a2, batch=b, **phases[str(b)])
     ms_per_frame[a2] = path_times(a2det, a2b, a2, plain_reps=1)
 
+    # ---- the chain microbenchmark: mb_vpu3 ----------------------------
+    from clfacedetection_torch.tools import mb_vpu3
+    t0 = time.perf_counter()
+    chain_checks = check_chain()
+    for fn in counters.values():
+        fn.launches = 0
+    tool = mb_vpu3.main(device="cuda", log=lambda line: print(
+        f"[mb_vpu3] {line}", flush=True))
+    torch.cuda.synchronize()
+    mb_launches = {k: fn.launches for k, fn in counters.items()}
+    need(all(mb_launches[k] > 0 for k in ("chain", "haar_front", "compact",
+                                          "haar_tail2")),
+         f"mb_vpu3 did not run its kernels: {mb_launches}")
+    check_sass(tool["sass"])
+    rates = {b: dict(tops=c["tops"], ps_per_elem_op=c["ps_per_elem_op"],
+                     ms=c["ms"], spread=c["spread"])
+             for b, c in tool["chains"].items()}
+    say("rates", peak_ops_tops=PEAK_OPS / 1e12, empty_ms=tool["empty_ms"],
+        matmul_bf16_tflops=round(tool["matmul"]["tflops"], 3),
+        tops=json.dumps({b: round(r["tops"], 4) for b, r in rates.items()}),
+        seconds=round(time.perf_counter() - t0, 3))
+    head = chain_checks[f"slices@{CHAIN_TRIPS[-1]}"]
+    results["chain"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in chain_checks.values()),
+        ms=tool["chains"]["slices"]["ms"][CHAIN_TRIPS[-1]],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None,
+        headline="slices at 16 trips",
+        per_body={k: dict(v, ms=(tool["chains"][k.split("@")[0]]["ms"]
+                                 [int(k.split("@")[1])]
+                                 if not k.startswith("empty") else None))
+                  for k, v in chain_checks.items()},
+        empty_ms=tool["empty_ms"], rates=rates, sass=tool["sass"],
+        matmul=tool["matmul"], front_sweep=tool["front"])
+
     # the profiler last (see the head of this file): the compaction's and
     # nonzero_static's device time from their kernels' durations, then
     # frontalface_alt's batch-1 pipeline timed again
@@ -903,13 +1060,19 @@ def main() -> int:
 
     entry = dict(results)
     entry["haar_tail"] = v1[a2]["haar_tail"]
-    paths = {CASCADE: launches, **v1_launches}
+    paths = {CASCADE: launches, "photo_scene": photo_launches,
+             **v1_launches, "mb_vpu3": mb_launches}
+    path_of = {"haar_tail": v1_launches[a2], "chain": mb_launches}
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=(launches if k != "haar_tail" else
-                       v1_launches[a2])[k], **entry[k])
+             launches=path_of.get(k, launches)[k], **entry[k])
         for k, src, rep in KERNELS]}
     record["launches_by_path"] = paths
+    record["photo_scene"] = dict(survivors=photo_surv,
+                                 jax_survivors=JAX_PHOTO_SURVIVORS,
+                                 unfused_variance=unfused,
+                                 candidates=len(pres.candidates),
+                                 boxes=pres.boxes.tolist())
     record["v1_checks"] = v1
     record["phases_ms_per_frame"] = {a2: phases}
     record["ms_per_frame"] = ms_per_frame

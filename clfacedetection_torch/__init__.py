@@ -4,7 +4,8 @@ Viola-Jones object detection with OpenCV's scale-image semantics: cascade
 loading, a packed resize pyramid, integral images, and four hand-written
 CUDA kernels for Hopper (dense front, ordered compaction, the tail2
 cascade walk and the v1 all-nodes tail) behind plain PyTorch twins that
-run on the CPU.  Imports torch and numpy, never jax.
+run on the CPU; a fifth, the op-chain microbenchmark, serves the tool
+``tools/mb_vpu3.py``.  Imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"

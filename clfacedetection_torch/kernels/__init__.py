@@ -25,7 +25,7 @@ import subprocess
 import threading
 from typing import Optional
 
-__all__ = ["NVCC_FLAGS", "lib", "check", "build_log"]
+__all__ = ["NVCC_FLAGS", "lib", "check", "build_log", "sass"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -46,6 +46,7 @@ _SIGNATURES = {
     "clfd_compact": [_P] * 4 + [_I] * 5 + [_P],
     "clfd_haar_tail2": [_P] * 5 + [_I] * 8 + [_P],
     "clfd_haar_tail": [_P] * 5 + [_I] * 11 + [_P],
+    "clfd_chain": [_P] * 2 + [_I] * 4 + [_P],
 }
 
 
@@ -112,6 +113,15 @@ def build_log() -> str:
     lib()
     with open(f"{_lib_path}.log") as f:
         return f.read()
+
+
+def sass() -> str:
+    """The library's SASS, as ``cuobjdump -sass`` (beside ``nvcc``) prints
+    it."""
+    lib()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", _lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
 
 
 def lib() -> ctypes.CDLL:

@@ -1,3 +1,5 @@
-from .testimage import synth_face, synth_scene
+from .testimage import (PHOTO_FACE_BOX, photo_gray, photo_scene, synth_face,
+                        synth_scene)
 
-__all__ = ["synth_face", "synth_scene"]
+__all__ = ["synth_face", "synth_scene", "photo_gray", "photo_scene",
+           "PHOTO_FACE_BOX"]
