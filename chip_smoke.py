@@ -29,6 +29,16 @@ points and times kernels and paths with CUDA events:
   (checked to hold the source's slice reads and float operations), the
   bf16 product chain and the front sweep on ``photo_scene``.
 
+tail2 is held bit-equal at batch 1 and 8, on ``photo_scene``, with every
+slot padding, at a cap that is no multiple of its 16-slot chunk, with an
+overflowing compaction, and replayed from a CUDA graph; the v1 tail with
+every slot padding, at a cap that is no multiple of 32 and at batch 8
+(frontalface_alt2 and eye_tree_eyeglasses).  Both are timed at batch 1
+and per frame at batch 8, with CUDA events around back-to-back calls and
+from a replayed CUDA graph (device time alone).  Both lay out their
+shared memory at launch, so every cascade of the zoo runs each tail that
+serves it at 240x320 (tail2 at every ``front_k``), bit-equal to plain.
+
 The front is held bit-equal at batch 1 and 8 and at a ragged grid (batch
 2); its per-stage prefix times and the lane work of the old and the new
 lane assignment come from its own masks.  The compaction is held
@@ -375,7 +385,7 @@ def tail_bound(table, surv, hv, wv, hp, wp) -> dict:
         mark(mask, bases, corner_offsets(table, clfs, tilted, wp))
         read += int(mask.sum())
     nn = table.n_clf * table.T
-    nbytes = B * cap * 4 + read * 4 + B * cap * nn * 4 + table.packed.nbytes
+    nbytes = B * cap * 4 + read * 4 + B * cap * nn * 4 + table.nodes.nbytes
     ops = bases.numel() * float(table.n_rects.sum() * 6)
     return bound(nbytes, ops)
 
@@ -588,8 +598,8 @@ def check_kernels(det, gray, stack8):
     check_front_ragged(det.spec)
 
     flags = fk.reshape(1, -1)
-    fk8, _ = haar_front(*det._prep_planes(frames8)[:3], det._visit,
-                        det.table, det.front_k)
+    ii8 = det._prep_planes(frames8)
+    fk8, vk8 = haar_front(*ii8[:3], det._visit, det.table, det.front_k)
     check_compaction(flags, fk8.reshape(fk8.shape[0], -1), det.cap)
     ik, nk = compact(flags, det.cap)
     ip, np_ = compact_plain(flags, det.cap)
@@ -608,18 +618,126 @@ def check_kernels(det, gray, stack8):
     out["haar_tail2"] = dict(
         max_abs_err=max_abs_err(rk, rp),
         ms=timed(lambda: haar_tail2(*targs), 20),
+        graph_ms=graph_ms(lambda: haar_tail2(*targs), 20),
         plain_ms=timed(lambda: tail2_plain(*targs), 2),
         **tail2_bound(det.table, rp, ik, det.hv, det.wv, *s.shape[1:],
                       det.front_k),
         library_ms=None)
+    out["haar_tail2"].update(check_tail2_cases(det, targs, rp, ii8, fk8,
+                                               vk8))
     say("kernel", name="haar_tail2", slots=det.cap,
         accepted=int((rk[..., 1] > 0).sum()), **out["haar_tail2"])
     return out, flags
 
 
-def check_v1(det, gray) -> dict:
+def tail2_case(det, s, vnf, surv, what) -> None:
+    """tail2 bit-equal to its plain version on these slots."""
+    from clfacedetection_torch.ops.haar_tail2 import haar_tail2, tail2_plain
+    args = (s, vnf, surv, det.table, det.front_k)
+    need(bits_equal(haar_tail2(*args), tail2_plain(*args)),
+         f"tail2 ({what}) differs from its plain version")
+
+
+def check_tail2_cases(det, targs, rows, ii8, fk8, vk8) -> dict:
+    """tail2 bit-equal to its plain version beyond the main path's call:
+    at batch 8 (``synth_scene``), every slot padding, a cap that is no
+    multiple of the kernel's 16-slot chunk, an overflowing compaction (a
+    true count above the cap: every slot live), and replayed from a CUDA graph; the batch-8
+    times per frame."""
+    import torch
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_tail2 import haar_tail2
+    s, vk, ik, table, front_k = targs
+    B8 = fk8.shape[0]
+    cases = []
+    surv8, n8 = compact(fk8.reshape(B8, -1), det.cap)
+    tail2_case(det, ii8.sum, vk8, surv8, "batch 8")
+    cases.append("batch8")
+    n = det.hv * det.wv
+    pad = torch.full_like(ik, n)
+    tail2_case(det, s, vk, pad, "all padding")
+    cases.append("all_padding")
+    ragged = det.cap - 5
+    need(ragged % 16 != 0, "the ragged cap is a multiple of the chunk")
+    flags = (ik[0] < n).new_zeros(n)
+    flags[ik[0][ik[0] < n].long()] = True
+    ir, nr = compact(flags[None], ragged)
+    need(int(nr[0]) < ragged, "the ragged cap holds no padding")
+    tail2_case(det, s, vk, ir, f"cap {ragged}")
+    cases.append(f"cap_{ragged}")
+    io, no = compact(flags[None], 4096)
+    need(int(no[0]) > 4096, "the small cap does not overflow")
+    tail2_case(det, s, vk, io, "overflowing cap 4096")
+    cases.append("overflow_4096")
+    # a graph replays the launch with the same inputs
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(st):
+        haar_tail2(*targs)
+    torch.cuda.current_stream().wait_stream(st)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=st):
+        gr = haar_tail2(*targs)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        need(bits_equal(gr, rows), "tail2 replayed from a CUDA graph differs")
+    cases.append("graph")
+    a8 = (ii8.sum, vk8, surv8, table, front_k)
+    say("tail2_cases", cases=",".join(cases), equal_to_plain=True)
+    return dict(cases=cases,
+                batch8_ms_per_frame=timed(lambda: haar_tail2(*a8), 20) / B8,
+                batch8_graph_ms_per_frame=graph_ms(
+                    lambda: haar_tail2(*a8), 10) / B8,
+                batch8_survivors=n8.tolist())
+
+
+def tail_case(det, planes, surv, what) -> None:
+    """The v1 tail bit-equal to its plain version on these slots."""
+    from clfacedetection_torch.ops.haar_tail import (haar_tail,
+                                                     tail_values_plain)
+    args = (planes.sum, planes.tilted, surv, det.hv, det.wv, det.table)
+    need(bits_equal(haar_tail(*args), tail_values_plain(*args)),
+         f"{det.spec.name}: v1 tail ({what}) differs from its plain version")
+
+
+def check_tail_cases(det, ii, surv, stack8) -> dict:
+    """The v1 tail bit-equal to its plain version with every slot padding,
+    at a cap that is no multiple of 32, and at batch 8 (``synth_scene``);
+    the batch-8 time per frame."""
+    import torch
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.haar_tail import haar_tail
+    n = det.hv * det.wv
+    tail_case(det, ii, torch.full_like(surv, n), "all padding")
+    valid = surv[0][surv[0] < n].long()
+    flags = torch.zeros(n, dtype=torch.bool, device=surv.device)
+    flags[valid] = True
+    ragged = det.cap - 7
+    need(ragged % 32 != 0, "the ragged cap is a multiple of 32")
+    tail_case(det, ii, compact(flags[None], ragged)[0], f"cap {ragged}")
+    ii8 = det._prep_planes(det.put(stack8))
+    fk8, _ = haar_front(ii8.sum, ii8.sq_hi, ii8.sq_lo, det._visit, det.table,
+                        det.front_k, tilted=ii8.tilted)
+    B8 = fk8.shape[0]
+    surv8, n8 = compact(fk8.reshape(B8, -1), det.cap)
+    tail_case(det, ii8, surv8, "batch 8")
+    a8 = (ii8.sum, ii8.tilted, surv8, det.hv, det.wv, det.table)
+    cases = ["all_padding", f"cap_{ragged}", "batch8"]
+    say("tail_cases", cascade=det.spec.name, cases=",".join(cases),
+        equal_to_plain=True)
+    return dict(cases=cases,
+                batch8_ms_per_frame=timed(lambda: haar_tail(*a8), 10) / B8,
+                batch8_graph_ms_per_frame=graph_ms(
+                    lambda: haar_tail(*a8), 3) / B8,
+                batch8_survivors=n8.tolist())
+
+
+def check_v1(det, gray, stack8=None) -> dict:
     """The front (CART and tilted branches) and the v1 tail kernel against
-    their plain versions at the main path's shapes."""
+    their plain versions at the main path's shapes; with ``stack8``, the
+    tail's edge cases and batch 8 too."""
     import torch
     from clfacedetection_torch.ops.compact_kernel import compact
     from clfacedetection_torch.ops.haar_front import front_plain, haar_front
@@ -664,6 +782,12 @@ def check_v1(det, gray) -> dict:
         **tail_bound(det.table, surv, det.hv, det.wv, *ii.sum.shape[1:]),
         library_ms=lib_ms,
         library_max_abs_err=lib_err)
+    if det.cap <= KNOBS["cap"]:
+        # device time alone; a graph of alt_tree's 11 GB outputs would not
+        # fit, and its calls are long enough for the host not to show
+        tail["graph_ms"] = graph_ms(lambda: haar_tail(*targs), 5)
+    if stack8 is not None:
+        tail.update(check_tail_cases(det, ii, surv, stack8))
     say("kernel", name="haar_front", cascade=name, front_k=det.front_k,
         survivors=n_true, **front)
     say("kernel", name="haar_tail", cascade=name, slots=det.cap,
@@ -677,6 +801,54 @@ def check_v1(det, gray) -> dict:
             f"{canvas.shape[2]}", rsat_ms=out["rsat_ms"],
             three_upright_integrals_ms=out["integrals_ms"])
     return out
+
+
+def check_zoo_tails(ct) -> dict:
+    """Each tail's block laid out and launched for every cascade of the
+    zoo on a 240x320 ``synth_scene``, bit-equal to its plain version on
+    the front's survivors: tail2 at every ``front_k`` of the cascades it
+    serves (every stage count of its shared-memory layout), the v1 tail
+    at the detector's ``front_k`` for all (its patch stride and slots a
+    block)."""
+    import glob
+    import torch
+    from clfacedetection_torch.models.zoo import artifact_dir
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.haar_tail import (haar_tail,
+                                                     tail_values_plain)
+    from clfacedetection_torch.ops.haar_tail2 import haar_tail2, tail2_plain
+    shape = (240, 320)
+    g = frame(5, shape)
+    served = {}
+    for path in sorted(glob.glob(os.path.join(artifact_dir(), "*.npz"))):
+        cname = os.path.basename(path)[:-4]
+        det = ct.PyramidDetector(ct.load_cascade(cname), shape,
+                                 device="cuda", **SWEEP_KNOBS)
+        ii = det._prep_planes(det.put(g))
+        tab = det.table
+
+        def survivors(fk):
+            mask, vnf = haar_front(ii.sum, ii.sq_hi, ii.sq_lo, det._visit,
+                                   tab, fk, tilted=ii.tilted)
+            return compact(mask.reshape(1, -1), det.cap)[0], vnf
+
+        depths = range(tab.n_stages + 1) if det.use_tail2 else ()
+        for fk in depths:
+            surv, vnf = survivors(fk)
+            args = (ii.sum, vnf, surv, tab, fk)
+            need(bits_equal(haar_tail2(*args), tail2_plain(*args)),
+                 f"{cname}: tail2 at front_k {fk} differs from plain")
+        surv, _ = survivors(det.front_k)
+        args = (ii.sum, ii.tilted, surv, det.hv, det.wv, tab)
+        need(bits_equal(haar_tail(*args), tail_values_plain(*args)),
+             f"{cname}: v1 tail differs from plain")
+        served[cname] = "tail2+v1" if det.use_tail2 else "v1"
+        del det, ii
+    torch.cuda.synchronize()
+    say("zoo_tails", shape=f"{shape[0]}x{shape[1]}", cascades=len(served),
+        tail2=sum(v != "v1" for v in served.values()), equal_to_plain=True)
+    return served
 
 
 # shared loads of one trip and element in the source, and the fewest float
@@ -874,11 +1046,22 @@ def main() -> int:
     need(not pres.survivor_overflow, "photo_scene: survivor cap overflowed")
     same_as_plain(det, photo, pres, "1080p photo_scene")
     pii = det._prep_planes(det.put(photo))
-    pmask = haar_front(pii.sum, pii.sq_hi, pii.sq_lo, det._visit,
-                       det.table, det.front_k)[0]
+    pmask, pvnf = haar_front(pii.sum, pii.sq_hi, pii.sq_lo, det._visit,
+                             det.table, det.front_k)
     photo_surv = int(pmask.sum())
     unfused = unfused_front(det, pii, pmask)
-    del pii, pmask
+    # tail2 on the photo's survivors: bit-equal, and its time
+    psurv, pn = compact(pmask.reshape(1, -1), det.cap)
+    tail2_case(det, pii.sum, pvnf, psurv, "photo_scene")
+    pargs = (pii.sum, pvnf, psurv, det.table, det.front_k)
+    results["haar_tail2"].update(
+        photo_ms=timed(lambda: haar_tail2(*pargs), 20),
+        photo_graph_ms=graph_ms(lambda: haar_tail2(*pargs), 20))
+    say("kernel", name="haar_tail2", scene="photo_scene",
+        survivors=int(pn[0]), equal_to_plain=True,
+        ms=results["haar_tail2"]["photo_ms"],
+        graph_ms=results["haar_tail2"]["photo_graph_ms"])
+    del pii, pmask, pvnf, psurv
     say("photo_scene", shape=f"{SHAPE[0]}x{SHAPE[1]}", front_k=det.front_k,
         survivors=photo_surv, jax_survivors=JAX_PHOTO_SURVIVORS,
         survivors_equal=photo_surv == JAX_PHOTO_SURVIVORS,
@@ -940,6 +1123,7 @@ def main() -> int:
     # ---- the v1 tail's path: CART, tilted, stage tree ----------------
     v1 = {}
     v1_launches = {}
+    tree_phases = {}
     for cname in V1_CASCADES:
         vdet = ct.PyramidDetector(ct.load_cascade(cname), SHAPE,
                                   device="cuda", **KNOBS)
@@ -959,7 +1143,13 @@ def main() -> int:
             launches=json.dumps(vl), boxes=json.dumps(vres.boxes.tolist()))
         # after the main path, so that the kernels are held to their plain
         # versions at the slot count it ran with (regrown where it overflowed)
-        v1[cname] = check_v1(vdet, gray)
+        v1[cname] = check_v1(vdet, gray, None if vdet.is_tree
+                             else np.stack(list(stack.values())))
+        if vdet.is_tree:
+            # the frame of the cascade with the most survivors, batch 1
+            tree_phases = {cname: {"1": breakdown(vdet, vdet.put(gray))}}
+            say("phases", cascade=cname, batch=1,
+                **tree_phases[cname]["1"])
         del vdet
         torch.cuda.empty_cache()
 
@@ -993,6 +1183,7 @@ def main() -> int:
     say("vga_sweep", shape=f"{VGA[0]}x{VGA[1]}", cascades=len(sweep),
         seconds=round(time.perf_counter() - t0, 3),
         candidates=json.dumps(sweep), equal_to_cpu=True)
+    zoo_tails = check_zoo_tails(ct)
 
     # batch-8 stream of frontalface_alt2, phase breakdown, path times
     a2 = V1_CASCADES[0]
@@ -1074,9 +1265,10 @@ def main() -> int:
                                  candidates=len(pres.candidates),
                                  boxes=pres.boxes.tolist())
     record["v1_checks"] = v1
-    record["phases_ms_per_frame"] = {a2: phases}
+    record["phases_ms_per_frame"] = {a2: phases, **tree_phases}
     record["ms_per_frame"] = ms_per_frame
     record["vga_sweep"] = sweep
+    record["zoo_tails"] = zoo_tails
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

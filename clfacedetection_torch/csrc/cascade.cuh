@@ -133,6 +133,33 @@ __device__ __forceinline__ float clfd_stage_sum(const int* __restrict__ table,
   return ssum;
 }
 
+// One stump's vote at the window whose top-left plane entry is `p`, from
+// its record's five 16-byte groups (the stump view, head of this file):
+//   node = sum_k f32(rect_k) * w_k        (rect order, separately rounded)
+//   vote = node < thr * vnf ? left : right  (the product rounded first)
+template <class P = ClfdGlobal>
+__device__ __forceinline__ float clfd_stump_vote(int4 g0, int4 g1, int4 g2,
+                                                 int4 g3, int4 g4,
+                                                 const int* __restrict__ p,
+                                                 int wp, float vnf) {
+  float nv = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k < g0.x) {
+      const int ya = k == 0 ? g0.y : (k == 1 ? g1.y : g2.y);
+      const int xa = k == 0 ? g0.z : (k == 1 ? g1.z : g2.z);
+      const int yb = k == 0 ? g0.w : (k == 1 ? g1.w : g2.w);
+      const int xb = k == 0 ? g1.x : (k == 1 ? g2.x : g3.x);
+      const int wt = k == 0 ? g3.y : (k == 1 ? g3.z : g3.w);
+      const float rs = (float)clfd_rect<P>(p, wp, ya, xa, yb, xb);
+      const float term = __fmul_rn(rs, __int_as_float(wt));
+      nv = (k == 0) ? term : __fadd_rn(nv, term);
+    }
+  }
+  const float t = __fmul_rn(__int_as_float(g4.x), vnf);
+  return nv < t ? __int_as_float(g4.y) : __int_as_float(g4.z);
+}
+
 // The same stage sum over the stump view, for upright stumps, at W
 // windows at once (`p[w]`, `vnf[w]` -> `ssum[w]`):
 //   node = sum_k f32(rect_k) * w_k        (rect order)
@@ -159,40 +186,12 @@ __device__ __forceinline__ void clfd_stump_stage_sums(
     // nr ya xa yb | xb ya xa yb | xb ya xa yb | xb w0 w1 w2 | thr l r 0
     const int4 g0 = T::ld4(nd), g1 = T::ld4(nd + 4), g2 = T::ld4(nd + 8);
     const int4 g3 = T::ld4(nd + 12), g4 = T::ld4(nd + 16);
-    const int nr = g0.x;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      float nv = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        if (k < nr) {
-          const int ya = k == 0 ? g0.y : (k == 1 ? g1.y : g2.y);
-          const int xa = k == 0 ? g0.z : (k == 1 ? g1.z : g2.z);
-          const int yb = k == 0 ? g0.w : (k == 1 ? g1.w : g2.w);
-          const int xb = k == 0 ? g1.x : (k == 1 ? g2.x : g3.x);
-          const int wt = k == 0 ? g3.y : (k == 1 ? g3.z : g3.w);
-          const float rs = (float)clfd_rect<P>(p[w], wp, ya, xa, yb, xb);
-          const float term = __fmul_rn(rs, __int_as_float(wt));
-          nv = (k == 0) ? term : __fadd_rn(nv, term);
-        }
-      }
-      const float t = __fmul_rn(__int_as_float(g4.x), vnf[w]);
-      const float vote = nv < t ? __int_as_float(g4.y)
-                                : __int_as_float(g4.z);
-      ssum[w] = __fadd_rn(ssum[w], vote);
+      ssum[w] = __fadd_rn(ssum[w], clfd_stump_vote<P>(g0, g1, g2, g3, g4,
+                                                      p[w], wp, vnf[w]));
     }
   }
-}
-
-template <class T = ClfdGlobal, class P = ClfdGlobal>
-__device__ __forceinline__ float clfd_stump_stage_sum(
-    const int* __restrict__ stumps, int n_table_stages, int st,
-    const int* __restrict__ p, int wp, float vnf) {
-  const int* pw = p;
-  float ssum;
-  clfd_stump_stage_sums<1, T, P>(stumps, n_table_stages, st, &pw, wp, &vnf,
-                                 &ssum);
-  return ssum;
 }
 
 template <class T = ClfdGlobal>

@@ -44,8 +44,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "clfd_haar_front": [_P] * 8 + [_I] * 15 + [_F, _P],
     "clfd_compact": [_P] * 4 + [_I] * 5 + [_P],
-    "clfd_haar_tail2": [_P] * 5 + [_I] * 8 + [_P],
-    "clfd_haar_tail": [_P] * 5 + [_I] * 11 + [_P],
+    "clfd_haar_tail2": [_P] * 5 + [_I] * 11 + [_P],
+    "clfd_haar_tail": [_P] * 5 + [_I] * 9 + [_P],
     "clfd_chain": [_P] * 2 + [_I] * 4 + [_P],
 }
 

@@ -29,6 +29,16 @@ values (f32 bits), 0.  A stump takes 80 bytes there: tail2 runs one
 thread per survivor and reads every table word of every stage it walks,
 so it keeps the compact form.
 
+The v1 tail reads a third view, ``nodes``: ``NODE_VIEW_WORDS`` per node
+``(c, t)`` in column order ``c * T + t``: rect count, then the three
+rects' four corners as offsets into the node's window patch (``plane *
+ph * pw + y * pw + x`` for a patch of ``ph = max_dy + 1`` rows and ``pw =
+max_dx + 1`` columns, the tilted plane's after the ``sum`` plane's), then
+the three weights (f32 bits), and zero records up to a multiple of
+``NODE_VIEW_PAD`` nodes.  64 bytes a node: the kernel reads each record
+once for 32 survivors, and the records of ``NODE_VIEW_PAD`` nodes at a
+time.
+
 Rects of weight 0 are left out, as the JAX package's front skips them;
 the rest keep their order.  Absent rects and nodes are zeros.  Source:
 ``_build_clf_tables(c, [1.0])`` (the JAX package's
@@ -47,13 +57,15 @@ from ..detect.detector import _ClfTables
 from ..models.compile import CompiledCascade
 
 __all__ = ["CascadeTable", "STAGE_WORDS", "CLF_HEAD", "NODE_WORDS",
-           "MAX_T", "STUMP_WORDS"]
+           "MAX_T", "STUMP_WORDS", "NODE_VIEW_WORDS", "NODE_VIEW_PAD"]
 
 STAGE_WORDS = 4
 CLF_HEAD = 8
 NODE_WORDS = 32
 MAX_T = 3
 STUMP_WORDS = 20
+NODE_VIEW_WORDS = 16
+NODE_VIEW_PAD = 128
 
 
 @dataclasses.dataclass
@@ -77,6 +89,7 @@ class CascadeTable:
     packed: np.ndarray        # int32 [S*STAGE_WORDS + C*clf_words]
     stumps: Optional[np.ndarray]  # int32 [S*STAGE_WORDS + C*STUMP_WORDS],
     #                               None unless stumps with upright rects
+    nodes: np.ndarray         # int32 [C*T (padded)*NODE_VIEW_WORDS]
     _dev: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # table words the front kernel stages, by front_k (ops/haar_front.py
     # front_launch)
@@ -171,21 +184,24 @@ class CascadeTable:
         max_dx = max(int(corners[..., 1].max(initial=0)), equ[3])
         if corners.min(initial=0) < 0:
             raise ValueError("a rect corner lies left of or above its window")
+        node_view = _pack_nodes(n_rects, tilted, corners, weights, max_dy,
+                                max_dx)
         return cls(s_c0, s_cnt, s_thr, nodes, alpha, n_rects, tilted, left,
                    right, thr, weights, corners, equ, float(inv_area),
-                   max_dy, max_dx, packed, stumps)
+                   max_dy, max_dx, packed, stumps, node_view)
 
-    def device_buffer(self, device, stumps: bool = False) -> torch.Tensor:
-        """The packed table, or with ``stumps`` its stump view, on
-        ``device`` (copied once per device)."""
+    def device_buffer(self, device, stumps: bool = False,
+                      nodes: bool = False) -> torch.Tensor:
+        """The packed table, or with ``stumps`` its stump view, or with
+        ``nodes`` its node view, on ``device`` (copied once per device)."""
         if stumps and self.stumps is None:
             raise ValueError("the cascade has no stump view: it holds CART "
                              "classifiers or tilted or non-upright rects")
-        key = f"{torch.device(device)}/{'stumps' if stumps else 'packed'}"
+        view = "stumps" if stumps else "nodes" if nodes else "packed"
+        key = f"{torch.device(device)}/{view}"
         buf = self._dev.get(key)
         if buf is None:
-            buf = torch.from_numpy(self.stumps if stumps
-                                   else self.packed).to(device)
+            buf = torch.from_numpy(getattr(self, view)).to(device)
             self._dev[key] = buf
         return buf
 
@@ -214,3 +230,21 @@ def _pack_stumps(st, n_rects, corners, weights, thr, alpha, left, right,
     nd[:, 17] = alpha[idx, -left[:, 0]].view(np.int32)
     nd[:, 18] = alpha[idx, -right[:, 0]].view(np.int32)
     return np.concatenate([sv.reshape(-1), nd.reshape(-1)])
+
+
+def _pack_nodes(n_rects, tilted, corners, weights, max_dy,
+                max_dx) -> np.ndarray:
+    """The node view (module docstring): per node its rect count, the
+    twelve corner offsets into the window patch and the three weights."""
+    n, T = n_rects.shape
+    ph, pw = max_dy + 1, max_dx + 1
+    off = (tilted[:, :, None, None] * (ph * pw) + corners[..., 0] * pw
+           + corners[..., 1])                              # [C, T, 3, 4]
+    live = np.arange(3)[None, None] < n_rects[..., None]
+    nd = np.zeros((n, T, NODE_VIEW_WORDS), np.int32)
+    nd[..., 0] = n_rects
+    nd[..., 1:13] = np.where(live[..., None], off, 0).reshape(n, T, 12)
+    nd[..., 13:16] = weights.view(np.int32)
+    pad = -(n * T) % NODE_VIEW_PAD
+    return np.concatenate([nd.reshape(-1),
+                           np.zeros(pad * NODE_VIEW_WORDS, np.int32)])

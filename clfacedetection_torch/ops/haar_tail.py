@@ -124,13 +124,13 @@ def haar_tail(sum_: torch.Tensor, tilted: Optional[torch.Tensor],
         raise NotImplementedError("the CUDA tail runs in float32 only")
     cap = surv_idx.shape[1]
     ph, pw = patch_shape(table)
-    out = torch.empty((B, cap, table.n_clf * table.T), dtype=torch.float32,
-                      device=sum_.device)
-    tab = table.device_buffer(sum_.device)
+    nn = table.n_clf * table.T
+    out = torch.empty((B, cap, nn), dtype=torch.float32, device=sum_.device)
+    tab = table.device_buffer(sum_.device, nodes=True)
     err = kernels.lib().clfd_haar_tail(
         sum_.data_ptr(), tilted.data_ptr() if table.has_tilted else None,
         surv_idx.data_ptr(), tab.data_ptr(), out.data_ptr(), B, hv, wv, hp,
-        wp, cap, table.n_stages, table.n_clf, table.T, ph, pw,
+        wp, cap, nn, ph, pw,
         torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_tail", err)
     haar_tail.launches += 1

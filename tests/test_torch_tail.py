@@ -22,6 +22,8 @@ table against the JAX package.
   exit stage); the stage tree's accept only.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ from clfacedetection_tpu.models import compile as jcompile
 from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_scene
 
+from clfacedetection_torch import kernels
 from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
 from clfacedetection_torch.detect.pyramid import tail_rows
 from clfacedetection_torch.models import load_cascade as t_load_cascade
@@ -105,14 +108,23 @@ def test_cascade_table_holds_jax_tables(name):
                                   tab.corners)
 
 
-def _jax_tail(name, max_stages, front, frame):
+@functools.lru_cache(maxsize=None)
+def _jax_det(name, max_stages, front):
+    """A JAX detector and its jitted front, compaction and XLA tail, made
+    once per file for each configuration."""
     jd = JDet(j_load_cascade(name), SHAPE, front_stages=front,
               max_stages=max_stages, dtype=jnp.float32, output_levels=True,
               use_pallas_front=False, cap=4096)
-    f = jax.jit(jd._front_device)(jnp.asarray(frame))
-    surv, n_surv = jax.jit(jd._compact_device)(f["front"])
+    return (jd, jax.jit(jd._front_device), jax.jit(jd._compact_device),
+            jax.jit(jd._tail_device_xla))
+
+
+def _jax_tail(name, max_stages, front, frame):
+    jd, front_fn, compact_fn, tail_fn = _jax_det(name, max_stages, front)
+    f = front_fn(jnp.asarray(frame))
+    surv, n_surv = compact_fn(f["front"])
     assert 0 < int(n_surv) <= jd.cap
-    jt = jax.jit(jd._tail_device_xla)(f["planes"], f["vnf"], surv, n_surv)
+    jt = tail_fn(f["planes"], f["vnf"], surv, n_surv)
     return jd, f, np.asarray(surv), int(n_surv), jt
 
 
@@ -255,3 +267,132 @@ def test_chunking_keeps_every_bit(monkeypatch):
                                   v2.numpy().view(np.int32))
     np.testing.assert_array_equal(r1.numpy().view(np.int32),
                                   r2.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("name,max_stages", [
+    ("haarcascade_frontalface_alt2", 6),            # CART, T=2
+    ("haarcascade_eye_tree_eyeglasses", 6),         # CART, T=3, tilted
+    ("haarcascade_mcs_eyepair_big", 6),             # 46x12 patch, tilted
+])
+def test_node_view_walk_equals_plain(name, max_stages):
+    """The kernel's node view holds the table: a walk of its records over
+    window patches (offsets into the patch, weights, the rect count; the
+    kernel's order of operations) gives ``tail_values_plain``'s bits."""
+    frame = synth_scene(SHAPE, faces=((60, 80, 40.0),), seed=9)
+    td = TDet(t_load_cascade(name), SHAPE, front_stages=3,
+              max_stages=max_stages, device="cpu")
+    tab = td.table
+    ii = td._prep_planes(torch.from_numpy(frame)[None])
+    n = td.hv * td.wv
+    idx = np.random.default_rng(5).choice(n, 64).astype(np.int32)
+    idx[::7] = n                                       # pad slots
+    plain = ttail.tail_values_plain(ii.sum, ii.tilted,
+                                    torch.from_numpy(idx)[None], td.hv,
+                                    td.wv, tab)[0].numpy()
+    ph, pw = ttail.patch_shape(tab)
+    planes = [ii.sum[0].numpy()] + ([ii.tilted[0].numpy()]
+                                    if tab.has_tilted else [])
+    rec = tab.nodes.reshape(-1, ctab.NODE_VIEW_WORDS)
+    nn = tab.n_clf * tab.T
+    assert len(rec) % ctab.NODE_VIEW_PAD == 0
+    assert len(rec) - nn < ctab.NODE_VIEW_PAD and not rec[nn:].any()
+    rec = rec[:nn]
+    np.testing.assert_array_equal(rec[:, 0], tab.n_rects.reshape(-1))
+    w = rec[:, 13:16].view(np.float32)
+    np.testing.assert_array_equal(w, tab.weights.reshape(-1, 3))
+    for slot, i in enumerate(idx):
+        if i >= n:
+            assert not plain[slot].any()
+            continue
+        y, x = divmod(int(i), td.wv)
+        patch = np.concatenate([p[y:y + ph, x:x + pw].reshape(-1)
+                                for p in planes])
+        c = patch[rec[:, 1:13]].reshape(-1, 3, 4).astype(np.int64)
+        rs = (c[..., 0] - c[..., 1] - c[..., 2] + c[..., 3]).astype(
+            np.int32).astype(np.float32)
+        nv = np.zeros(len(rec), np.float32)
+        for k in range(3):
+            term = rs[:, k] * w[:, k]
+            nv = np.where(rec[:, 0] > k, term if k == 0 else nv + term, nv)
+        np.testing.assert_array_equal(nv.view(np.int32),
+                                      plain[slot].view(np.int32))
+
+
+def test_tail_values_with_padding_interleaved_and_unequal_batch():
+    """B = 2 frames with unequal survivor counts, padding between live
+    slots in compaction order and a slot count that is no multiple of 32:
+    every live slot's node values against JAX's and the exact ones, every
+    pad slot zero."""
+    name = "haarcascade_eye_tree_eyeglasses"
+    jd, front, compact, _ = _jax_det(name, None, 3)
+    td = TDet(t_load_cascade(name), SHAPE, front_stages=jd.front_k,
+              device="cpu")
+    n_flat = td.hv * td.wv
+    frames = [synth_scene(SHAPE, faces=((60, 80, 40.0),), seed=9),
+              synth_scene(SHAPE, faces=((50, 60, 30.0),), seed=4)]
+    lists, outs = [], []
+    for fr in frames:
+        f = front(jnp.asarray(fr))
+        surv, n_surv = compact(f["front"])
+        live = np.asarray(surv)[:int(n_surv)]
+        slots = []
+        for i, v in enumerate(live):
+            slots.append(v)
+            if i % 3 == 2:
+                slots.append(n_flat)
+        lists.append(np.int32(slots))
+        outs.append(f)
+    assert len(lists[0]) != len(lists[1])
+    cap = max(map(len, lists)) + 7
+    assert cap % 32
+    surv = np.full((2, cap), n_flat, np.int32)
+    for b, sl in enumerate(lists):
+        surv[b, :len(sl)] = sl
+    ii = [td._prep_planes(torch.from_numpy(fr)[None]) for fr in frames]
+    s = torch.cat([i.sum for i in ii])
+    t = torch.cat([i.tilted for i in ii])
+    vals = ttail.haar_tail(s, t, torch.from_numpy(surv), td.hv, td.wv,
+                           td.table)
+    nn = td.table.n_clf * td.table.T
+    assert vals.shape == (2, cap, nn)
+    for b in range(2):
+        valid = surv[b] < n_flat
+        assert not vals[b][~valid].any()
+        tv = vals[b][valid].numpy().astype(np.float64)
+        sy, sx = surv[b][valid] // td.wv, surv[b][valid] % td.wv
+        exact = _exact_node_values(td, ii[b], sy, sx)
+        scale = np.abs(exact).max(axis=0)
+        assert (np.abs(tv - exact)
+                <= 1e-4 * np.abs(exact) + 1e-4 * scale).all()
+        jv, mag = _jax_node_values(jd, outs[b]["planes"], sy, sx)
+        jv, mag = jv[:, :nn], mag[:, :nn]
+        assert (np.abs(tv - jv) <= 1e-4 * np.abs(jv) + 2.0 ** -20 * mag).all()
+
+
+@pytest.mark.parametrize("entry", sorted(kernels._SIGNATURES))
+def test_entry_point_signature_matches_its_source(entry):
+    """The ctypes argument list of a kernel's C entry point matches its
+    declaration in ``csrc/``: a pointer for every ``*`` parameter, an int
+    for every ``int``, a float for every ``float``, in order."""
+    import ctypes
+    import glob
+    import os
+    import re
+    csrc = os.path.join(os.path.dirname(kernels.__file__), os.pardir, "csrc")
+    decls = []
+    for path in glob.glob(os.path.join(csrc, "*.cu")):
+        with open(path) as f:
+            decls += re.findall(r'extern "C" int ' + entry + r'\(([^)]*)\)',
+                                f.read())
+    assert len(decls) == 1, entry
+    want = []
+    for param in decls[0].split(","):
+        param = " ".join(param.split())
+        if "*" in param:
+            want.append(ctypes.c_void_p)
+        elif param.startswith(("int ", "const int ")):
+            want.append(ctypes.c_int)
+        else:
+            assert param.startswith("float "), param
+            want.append(ctypes.c_float)
+    assert kernels._SIGNATURES[entry] == want

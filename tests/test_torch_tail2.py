@@ -13,6 +13,8 @@ most 0.5% of survivors with another exit stage (on these scenes 0-2
 windows of 2,000-8,000 differ).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,3 +147,128 @@ def test_stump_view_decodes_to_the_table(name):
     np.testing.assert_array_equal(f[:, 4], tab.alpha[idx, -tab.left[:, 0]])
     np.testing.assert_array_equal(f[:, 5], tab.alpha[idx, -tab.right[:, 0]])
     assert not nd[:, 19].any()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tail2(name, front_k, shape=(120, 160), cap=8192):
+    """A JAX detector and its jitted front, compaction and XLA tail, made
+    once for the tests below."""
+    jd = JDet(j_load_cascade(name), shape, front_stages=front_k,
+              dtype=jnp.float32, output_levels=True, use_pallas_front=False,
+              cap=cap)
+    td = TDet(t_load_cascade(name), shape, front_stages=jd.front_k,
+              device="cpu")
+    return (jd, td, jax.jit(jd._front_device), jax.jit(jd._compact_device),
+            jax.jit(jd._tail_device_xla))
+
+
+def _jax_rows(key, f, surv):
+    """The JAX XLA tail's (ok, level, weight) on a slot list of one frame
+    (padded to the JAX detector's cap with the pad index)."""
+    jd, td, _, _, tail = _jax_tail2(*key)
+    n = len(surv)
+    full = np.full(jd.cap, td.hv * td.wv, np.int32)
+    full[:n] = surv
+    jt = tail(f["planes"], f["vnf"], jnp.asarray(full), jnp.int32(n))
+    return (np.asarray(jt["ok"])[:n], np.asarray(jt["level"])[:n],
+            np.asarray(jt["weight"])[:n])
+
+
+def _hold_to_jax(rows, surv, n_flat, jax_rows, n_stages):
+    """Port rows [cap, 4] against the JAX tail on the same slots, at the
+    module's tolerances; padding slots exactly (0, 0, S, 0)."""
+    ok, level, weight = jax_rows
+    valid = surv < n_flat
+    alive = rows[:, 1].numpy() > 0
+    assert not ok[~valid].any()
+    union = (alive | ok).sum()
+    assert union == 0 or (alive & ok).sum() / union >= 0.995
+    same = rows[valid, 2].numpy().astype(np.int32) == level[valid]
+    assert same.mean() >= 0.995
+    close = np.isclose(rows[valid, 3].numpy(), weight[valid], rtol=1e-5,
+                       atol=1e-6)
+    assert (close & same).mean() >= 0.995
+    np.testing.assert_array_equal(
+        rows[~valid].numpy(),
+        np.tile(np.float32([0, 0, n_stages, 0]), ((~valid).sum(), 1)))
+
+
+def _setup(key, frame):
+    """The JAX front's outputs on ``frame``, its survivors in compaction
+    order, and the port's detector and ``sum`` plane."""
+    jd, td, front, compact, _ = _jax_tail2(*key)
+    f = front(jnp.asarray(frame))
+    surv, n_surv = compact(f["front"])
+    s = td._prep_planes(torch.from_numpy(frame)[None]).sum
+    n = int(n_surv)
+    assert 0 < n <= jd.cap
+    return f, np.asarray(surv)[:n].astype(np.int32), td, s
+
+
+def test_tail2_padding_interleaved_in_compaction_order():
+    """Padding slots between live ones (ascending survivors, a pad after
+    every second) and a cap that is no multiple of the kernel's 16-slot
+    chunk."""
+    key = ("haarcascade_frontalface_alt", 4)
+    frame = synth_scene((120, 160), faces=((60, 80, 40.0),), seed=9)
+    f, live, td, s = _setup(key, frame)
+    n_flat = td.hv * td.wv
+    slots = []
+    for i, v in enumerate(live):
+        slots.append(v)
+        if i % 2:
+            slots.append(n_flat)
+    slots += [n_flat] * 5
+    surv = np.int32(slots)
+    assert len(surv) % 16 and (surv == n_flat).sum() > 5
+    rows = ttail.haar_tail2(s, torch.from_numpy(np.array(f["vnf"]))[None],
+                            torch.from_numpy(surv)[None], td.table,
+                            td.front_k)[0]
+    _hold_to_jax(rows, surv, n_flat, _jax_rows(key, f, surv), td.n_stages)
+
+
+def test_tail2_batch_of_two_with_unequal_counts():
+    """B = 2 frames whose survivor counts differ: each frame's rows equal
+    the JAX tail on its own slots, and the pad index fills the shorter
+    frame's slots past its count."""
+    key = ("haarcascade_frontalface_alt", 4)
+    frames = [synth_scene((120, 160), faces=((60, 80, 40.0),), seed=9),
+              synth_face((120, 160))]
+    got = [_setup(key, fr) for fr in frames]
+    td = got[0][2]
+    n_flat = td.hv * td.wv
+    counts = [len(g[1]) for g in got]
+    assert counts[0] != counts[1]
+    cap = max(counts) + 3
+    surv = np.full((2, cap), n_flat, np.int32)
+    for b, g in enumerate(got):
+        surv[b, :counts[b]] = g[1]
+    s = torch.cat([g[3] for g in got])
+    vnf = torch.from_numpy(np.stack([np.array(g[0]["vnf"]) for g in got]))
+    rows = ttail.haar_tail2(s, vnf, torch.from_numpy(surv), td.table,
+                            td.front_k)
+    for b, (f, _, _, _) in enumerate(got):
+        _hold_to_jax(rows[b], surv[b], n_flat, _jax_rows(key, f, surv[b]),
+                     td.n_stages)
+
+
+def test_tail2_survivors_that_pass_all_and_die_first():
+    """A slot list of windows that pass every stage beside windows that die
+    at the first tail stage, interleaved: the kernel's live lists keep
+    the first to the end and drop the others at once."""
+    key = ("haarcascade_frontalface_alt", 4)
+    f, live, td, s = _setup(key, synth_face((120, 160)))
+    ok, level, _ = _jax_rows(key, f, live)
+    deep = live[ok]
+    dead = live[level == td.front_k]
+    assert len(deep) and len(dead)
+    k = min(len(deep), len(dead))
+    surv = np.empty(2 * k, np.int32)
+    surv[0::2], surv[1::2] = deep[:k], dead[:k]
+    vnf = torch.from_numpy(np.array(f["vnf"]))[None]
+    rows = ttail.haar_tail2(s, vnf, torch.from_numpy(surv)[None], td.table,
+                            td.front_k)[0]
+    _hold_to_jax(rows, surv, td.hv * td.wv, _jax_rows(key, f, surv),
+                 td.n_stages)
+    assert (rows[0::2, 2] == td.n_stages).float().mean() >= 0.995
+    assert (rows[1::2, 2] == td.front_k).float().mean() >= 0.995
