@@ -19,6 +19,18 @@ points and times kernels and paths with CUDA events:
   ``strategy="block"`` on frontalface_alt equal to the per-stage path; a
   VGA sweep of the 15 cascades this path serves against the CPU; a
   batch-8 ``detect_stream`` of frontalface_alt2 against single frames;
+* the v1 tail's decisions kernel (``csrc/tail_rows.cu``: votes, stage
+  sums, stage-tree paths) bit-equal to its plain version (the parent's
+  torch code) on those three cascades at their main paths' slot counts
+  (alt_tree's regrown 327,680), all padding, a ragged cap, from a CUDA
+  graph and at batch 8; timed with events, from a graph and beside its
+  plain version, with its bound from the run's exit stages;
+* ``strategy="direct"`` (the stencil product, then the decisions kernel)
+  on frontalface_alt at 1080p against the CPU's direct path within the
+  docs/PARITY.md bounds, timed; the ROC output (``candidates_with_levels``)
+  of frontalface_alt (tail2) and frontalface_alt2 (the v1 tail), its packed
+  readback bit-equal to the plain path's; float64 on the card (the plain
+  versions) box for box with the CPU at VGA;
 * the JAX bench's scene: ``photo_scene`` at 1080p through frontalface_alt's
   ``detect``, equal to the plain path, its front survivors printed beside
   the JAX's 18,388;
@@ -37,7 +49,10 @@ every slot padding, at a cap that is no multiple of 32 and at batch 8
 and per frame at batch 8, with CUDA events around back-to-back calls and
 from a replayed CUDA graph (device time alone).  Both lay out their
 shared memory at launch, so every cascade of the zoo runs each tail that
-serves it at 240x320 (tail2 at every ``front_k``), bit-equal to plain.
+serves it at 240x320 (tail2 at every ``front_k``; the decisions kernel
+on every cascade), bit-equal to plain.  The v1 path's phase breakdowns
+(alt2 at batch 1 and 8, alt_tree at batch 1) put the decisions kernel's
+time beside its bound and its plain version's time.
 
 The front is held bit-equal at batch 1 and 8 and at a ragged grid (batch
 2); its per-stage prefix times and the lane work of the old and the new
@@ -86,6 +101,10 @@ KERNELS = [
      "clfacedetection_tpu/ops/haar_tail.py:116"),
     ("chain", "clfacedetection_torch/csrc/mb_chain.cu",
      "scripts/mb_vpu3.py:40"),
+    # no Pallas kernel: JAX computes the v1 tail's votes and stage sums in
+    # XLA on its tail kernel's output
+    ("tail_rows", "clfacedetection_torch/csrc/tail_rows.cu",
+     "clfacedetection_tpu/detect/pyramid.py:922"),
 ]
 V1_CASCADES = ("haarcascade_frontalface_alt2",
                "haarcascade_eye_tree_eyeglasses",
@@ -393,42 +412,23 @@ def tail_bound(table, surv, hv, wv, hp, wp) -> dict:
 def stencil_matmul(table, ii, surv, hv, wv):
     """The v1 tail's function as one PyTorch call: prebuilt f32 patches
     [cap, planes*P] times the signed corner-weight stencil [planes*P, NN]
-    (the TPU kernel's own body).  Returns a timer of the matmul alone
-    (patch extraction excluded) and its output."""
+    (the TPU kernel's own body; the package's ``"direct"`` strategy builds
+    both, ``ops/stencil.py``).  Returns a timer of the matmul alone (patch
+    extraction excluded) and its output."""
     import numpy as np
     import torch
-    ph, pw = table.max_dy + 1, table.max_dx + 1
-    P = ph * pw
-    planes = 2 if table.has_tilted else 1
-    nn = table.n_clf * table.T
-    sten = np.zeros((planes * P, nn), np.float32)
-    sign = np.float32([1, -1, -1, 1])
-    cor = table.corners.reshape(nn, 3, 4, 2)
-    w = table.weights.reshape(nn, 3)
-    nr = table.n_rects.reshape(nn)
-    tl = table.tilted.reshape(nn)
-    for col in range(nn):
-        for k in range(int(nr[col])):
-            for j in range(4):
-                row = int(tl[col]) * P + int(cor[col, k, j, 0]) * pw \
-                    + int(cor[col, k, j, 1])
-                sten[row, col] += sign[j] * w[col, k]
-    sten_t = torch.from_numpy(sten).cuda()
-    n = hv * wv
-    idx = surv[0].long()
-    valid = (idx >= 0) & (idx < n)
-    idx = torch.where(valid, idx, 0)
-    y = torch.div(idx, wv, rounding_mode="floor")
-    wp = ii.sum.shape[2]
-    base = y * wp + (idx - y * wv)
-    dy, dx = np.meshgrid(np.arange(ph), np.arange(pw), indexing="ij")
-    off = torch.from_numpy((dy * wp + dx).reshape(-1)).cuda()
-    g = base[:, None] + off
-    parts = [ii.sum[0].reshape(-1)[g]]
+    from clfacedetection_torch.ops.haar_tail import patch_shape
+    from clfacedetection_torch.ops.stencil import (build_stencils,
+                                                   window_patches)
+    ph, pw = patch_shape(table)
+    sten = [m for m in build_stencils(table, ph, pw) if m is not None]
+    sten_t = torch.from_numpy(np.concatenate(sten)).cuda()
+    parts = [window_patches(ii.sum, surv[:1], hv, wv, ph, pw, True)[0]]
     if table.has_tilted:
-        parts.append(ii.tilted[0].reshape(-1)[g])
+        parts.append(window_patches(ii.tilted, surv[:1], hv, wv, ph, pw,
+                                    False)[0])
     # window-local corrections keep f32 exact, as the TPU kernel does
-    patch = torch.cat([(p - p[:, :1]).float() for p in parts], dim=1)
+    patch = torch.cat(parts, dim=1).float()
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -437,6 +437,160 @@ def stencil_matmul(table, ii, surv, hv, wv):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return ms, out
+
+
+def rows_args(det, ii, surv, vnf):
+    """The decisions kernel's arguments for slots ``surv``: the v1 tail's
+    node values, the survivors' vnf, the slots, Hv*Wv, the table, front_k
+    and the stage-tree paths."""
+    import torch
+    from clfacedetection_torch.ops.haar_tail import haar_tail
+    n = det.hv * det.wv
+    valid = (surv >= 0) & (surv < n)
+    svnf = vnf.reshape(surv.shape[0], -1).gather(
+        1, torch.where(valid, surv, 0).long())
+    values = haar_tail(ii.sum, ii.tilted, surv, det.hv, det.wv, det.table)
+    return (values, svnf, surv, n, det.table, det.front_k,
+            det.paths if det.is_tree else None)
+
+
+def rows_case(det, args, what) -> None:
+    """The decisions kernel bit-equal to its plain version on ``args``."""
+    from clfacedetection_torch.ops.tail_rows import tail_rows, tail_rows_plain
+    need(bits_equal(tail_rows(*args), tail_rows_plain(*args)),
+         f"{det.spec.name}: tail_rows ({what}) differs from its plain "
+         f"version")
+
+
+def rows_bound(table, rows, surv, n, front_k, tree: bool) -> dict:
+    """Bytes: slot indices, each valid slot's vnf, the node values of the
+    stages each valid slot walks (a sequential cascade's slot from front_k
+    to its exit stage, a stage tree's every stage), the rows written, the
+    table's rows view.  Operations: per classifier walked its root node's
+    product, compare and select and the stage add (a lower bound: a CART
+    walk visits at least its root)."""
+    import numpy as np
+    B, cap = surv.shape
+    valid = ((surv >= 0) & (surv < n)).cpu().numpy()
+    S, T = table.n_stages, table.T
+    cnt = table.stage_cnt.astype(np.float64)
+    cum = np.concatenate([[0.0], np.cumsum(cnt)])
+    if tree:
+        clfs = np.full(int(valid.sum()), cum[S])
+    else:
+        lv = rows[..., 2].cpu().numpy()[valid].astype(np.int64)
+        s_lo = min(front_k, S)
+        clfs = cum[np.minimum(lv, S - 1) + 1] - cum[s_lo] if s_lo < S \
+            else np.zeros(len(lv))
+    n_valid = int(valid.sum())
+    nbytes = B * cap * 4 + n_valid * 4 + float(clfs.sum()) * T * 4 \
+        + B * cap * 16 + table.rows.nbytes
+    return bound(nbytes, float(clfs.sum()) * 4 + n_valid * S)
+
+
+def graph_rows(det, args, want) -> None:
+    """The decisions kernel captured in a CUDA graph, replayed three
+    times, each replay bit-equal to the plain rows ``want``."""
+    import torch
+    from clfacedetection_torch.ops.tail_rows import tail_rows
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(st):
+        tail_rows(*args)
+    torch.cuda.current_stream().wait_stream(st)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=st):
+        gr = tail_rows(*args)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        need(bits_equal(gr, want), f"{det.spec.name}: tail_rows replayed "
+             f"from a CUDA graph differs")
+
+
+def check_rows(det, ii, surv, vnf, stack8=None) -> dict:
+    """The decisions kernel at the main path's shapes: bit-equal to its
+    plain version on the detector's survivors, with every slot padding, at
+    a cap that is no multiple of its 32-slot warp and from a CUDA graph;
+    with ``stack8``, at batch 8 too.  Timed with CUDA events, from a
+    replayed graph and beside its plain version (the parent's torch code);
+    its bound from this run's exit stages."""
+    import torch
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.tail_rows import tail_rows, tail_rows_plain
+    name = det.spec.name
+    args = rows_args(det, ii, surv, vnf)
+    rk = tail_rows(*args)
+    rp = tail_rows_plain(*args)
+    torch.cuda.synchronize()
+    need(bits_equal(rk, rp), f"{name}: tail_rows differs from its plain "
+         f"version")
+    n = det.hv * det.wv
+    cases = ["main"]
+    rows_case(det, (args[0], args[1], torch.full_like(surv, n)) + args[3:],
+              "all padding")
+    cases.append("all_padding")
+    ragged = det.cap - 7
+    need(ragged % 32 != 0, "the ragged cap is a multiple of 32")
+    rows_case(det, (args[0][:, :ragged].contiguous(),
+                    args[1][:, :ragged].contiguous(),
+                    surv[:, :ragged].contiguous()) + args[3:],
+              f"cap {ragged}")
+    cases.append(f"cap_{ragged}")
+    graph_rows(det, args, rp)
+    cases.append("graph")
+    out = dict(max_abs_err=max_abs_err(rk, rp),
+               ms=timed(lambda: tail_rows(*args), 10),
+               graph_ms=graph_ms(lambda: tail_rows(*args), 5),
+               plain_ms=timed(lambda: tail_rows_plain(*args), 1),
+               **rows_bound(det.table, rp, surv, n, det.front_k,
+                            det.is_tree),
+               library_ms=None, accepted=int((rk[..., 1] > 0).sum()))
+    del args, rk, rp
+    if stack8 is not None:
+        ii8 = det._prep_planes(det.put(stack8))
+        fk8, vk8 = haar_front(ii8.sum, ii8.sq_hi, ii8.sq_lo, det._visit,
+                              det.table, det.front_k, tilted=ii8.tilted)
+        surv8, _ = compact(fk8.reshape(fk8.shape[0], -1), det.cap)
+        a8 = rows_args(det, ii8, surv8, vk8)
+        rows_case(det, a8, "batch 8")
+        cases.append("batch8")
+        B8 = surv8.shape[0]
+        p8 = tail_rows_plain(*a8)
+        out.update(batch8_ms_per_frame=timed(lambda: tail_rows(*a8), 10) / B8,
+                   batch8_graph_ms_per_frame=graph_ms(
+                       lambda: tail_rows(*a8), 5) / B8,
+                   batch8_plain_ms_per_frame=timed(
+                       lambda: tail_rows_plain(*a8), 1) / B8,
+                   batch8_bound_ms_per_frame=rows_bound(
+                       det.table, p8, surv8, n, det.front_k,
+                       det.is_tree)["bound_ms"] / B8)
+        del a8, p8
+    out["cases"] = cases
+    say("kernel", name="tail_rows", cascade=name, slots=det.cap,
+        cases=",".join(cases), equal_to_plain=True,
+        **{k: v for k, v in out.items() if k != "cases"})
+    return out
+
+
+def _iou(a, b) -> float:
+    iw = max(0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+    ih = max(0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+    inter = iw * ih
+    return inter / float(a[2] * a[3] + b[2] * b[3] - inter)
+
+
+def parity(a, b) -> dict:
+    """docs/PARITY.md's f32 bounds between two results: the candidate
+    sets' Jaccard, and whether the grouped boxes match 1:1 at IoU >= 0.9."""
+    sa = set(map(tuple, a.candidates.tolist()))
+    sb = set(map(tuple, b.candidates.tolist()))
+    jac = len(sa & sb) / max(1, len(sa | sb))
+    matched = len(a.boxes) == len(b.boxes) and all(
+        max(_iou(x, y) for y in b.boxes) >= 0.9 for x in a.boxes)
+    return dict(jaccard=jac, boxes_matched=bool(matched),
+                n_candidates=[len(sa), len(sb)])
 
 
 def check_front_batch(det, frames) -> float:
@@ -775,6 +929,8 @@ def check_v1(det, gray, stack8=None) -> dict:
     lib_ms, lib_out = stencil_matmul(det.table, ii, surv, det.hv, det.wv)
     lib_err = max_abs_err(lib_out[:n_true], tk[0, :n_true])
     del lib_out
+    n_nodes = tk.shape[2]
+    del tk
     tail = dict(
         max_abs_err=err,
         ms=timed(lambda: haar_tail(*targs), 10),
@@ -791,8 +947,9 @@ def check_v1(det, gray, stack8=None) -> dict:
     say("kernel", name="haar_front", cascade=name, front_k=det.front_k,
         survivors=n_true, **front)
     say("kernel", name="haar_tail", cascade=name, slots=det.cap,
-        nodes=tk.shape[2], **tail)
-    out = {"haar_front": front, "haar_tail": tail}
+        nodes=n_nodes, **tail)
+    out = {"haar_front": front, "haar_tail": tail,
+           "tail_rows": check_rows(det, ii, surv, vk, stack8)}
     if det.table.has_tilted:
         canvas = det._assemble_canvas(frames)
         out["rsat_ms"] = timed(lambda: tilted_integral(canvas), 10)
@@ -808,8 +965,8 @@ def check_zoo_tails(ct) -> dict:
     zoo on a 240x320 ``synth_scene``, bit-equal to its plain version on
     the front's survivors: tail2 at every ``front_k`` of the cascades it
     serves (every stage count of its shared-memory layout), the v1 tail
-    at the detector's ``front_k`` for all (its patch stride and slots a
-    block)."""
+    and its decisions kernel at the detector's ``front_k`` for all (the
+    patch stride, slots a block, T and the stage tree)."""
     import glob
     import torch
     from clfacedetection_torch.models.zoo import artifact_dir
@@ -839,15 +996,17 @@ def check_zoo_tails(ct) -> dict:
             args = (ii.sum, vnf, surv, tab, fk)
             need(bits_equal(haar_tail2(*args), tail2_plain(*args)),
                  f"{cname}: tail2 at front_k {fk} differs from plain")
-        surv, _ = survivors(det.front_k)
+        surv, vnf = survivors(det.front_k)
         args = (ii.sum, ii.tilted, surv, det.hv, det.wv, tab)
         need(bits_equal(haar_tail(*args), tail_values_plain(*args)),
              f"{cname}: v1 tail differs from plain")
+        rows_case(det, rows_args(det, ii, surv, vnf), "zoo")
         served[cname] = "tail2+v1" if det.use_tail2 else "v1"
         del det, ii
     torch.cuda.synchronize()
     say("zoo_tails", shape=f"{shape[0]}x{shape[1]}", cascades=len(served),
-        tail2=sum(v != "v1" for v in served.values()), equal_to_plain=True)
+        tail2=sum(v != "v1" for v in served.values()), tail_rows=len(served),
+        equal_to_plain=True)
     return served
 
 
@@ -905,17 +1064,24 @@ def check_sass(sass: dict) -> None:
 
 def breakdown(det, frames) -> dict:
     """Device ms per frame of each phase of the v1 path, from CUDA events
-    recorded between the phases of one pass (one synchronise)."""
+    recorded between the phases of one pass (one synchronise); the votes
+    and stage sums are the decisions kernel.  Beside them, on the last
+    pass's inputs: the plain version of that phase (the parent's torch
+    code) and the kernel's bound, per frame."""
     import torch
-    from clfacedetection_torch.detect.pyramid import ACCEPT_CAP, tail_rows
+    from clfacedetection_torch.detect.pyramid import ACCEPT_CAP
     from clfacedetection_torch.ops.compact_kernel import compact
     from clfacedetection_torch.ops.haar_front import haar_front
     from clfacedetection_torch.ops.haar_tail import haar_tail
+    from clfacedetection_torch.ops.tail_rows import tail_rows, tail_rows_plain
     B, cap = frames.shape[0], det.cap
     names = ("prep", "haar_front", "compact", "haar_tail", "votes_stages",
              "accept_pack")
+    n = det.hv * det.wv
+    paths = det.paths if det.is_tree else None
     best = None
     for _ in range(4):                          # first pass warms up
+        values = None                           # the last pass's, freed
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
         ii = det._prep_planes(frames)
@@ -928,13 +1094,11 @@ def breakdown(det, frames) -> dict:
         values = haar_tail(ii.sum, ii.tilted, surv, det.hv, det.wv,
                            det.table)
         ev[4].record()
-        n = det.hv * det.wv
         valid = (surv >= 0) & (surv < n)
         svnf = vnf.reshape(B, -1).gather(1, torch.where(valid, surv,
                                                         0).long())
-        rows = tail_rows(values, svnf, valid, det.table, det.front_k,
-                         det.paths if det.is_tree else None)
-        del values
+        rows = tail_rows(values, svnf, surv, n, det.table, det.front_k,
+                         paths)
         ev[5].record()
         ok = rows[..., 1] > 0
         acc, n_acc = compact(ok, min(cap, ACCEPT_CAP))
@@ -945,7 +1109,13 @@ def breakdown(det, frames) -> dict:
         t = [ev[i].elapsed_time(ev[i + 1]) / B for i in range(6)]
         if best is None or sum(t) < sum(best):
             best = t
-    return dict(zip(names, best), total=sum(best))
+    args = (values, svnf, surv, n, det.table, det.front_k, paths)
+    plain = timed(lambda: tail_rows_plain(*args), 1) / B
+    bnd = rows_bound(det.table, rows, surv, n, det.front_k,
+                     det.is_tree)["bound_ms"] / B
+    del values, args
+    return dict(zip(names, best), total=sum(best),
+                votes_stages_plain=plain, votes_stages_bound=bnd)
 
 
 def main() -> int:
@@ -970,9 +1140,18 @@ def main() -> int:
     from clfacedetection_torch.ops.haar_tail import haar_tail
     from clfacedetection_torch.ops.haar_tail2 import haar_tail2
     from clfacedetection_torch.ops.chain import chain
+    from clfacedetection_torch.ops.tail_rows import tail_rows
     counters = {"haar_front": haar_front, "compact": compact,
                 "haar_tail2": haar_tail2, "haar_tail": haar_tail,
-                "chain": chain}
+                "chain": chain, "tail_rows": tail_rows}
+
+    def counted(fn):
+        """``fn()`` with every count from 0; its result and the counts."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
 
     def drive(det, gray):
         """One detect() through the entry point with every count from 0;
@@ -1024,7 +1203,8 @@ def main() -> int:
     res, launches = drive(det, gray)
     need(all(launches[k] > 0 for k in ("haar_front", "compact",
                                        "haar_tail2"))
-         and launches["haar_tail"] == 0 and launches["chain"] == 0,
+         and launches["haar_tail"] == 0 and launches["chain"] == 0
+         and launches["tail_rows"] == 0,
          f"tail2's path did not run its kernels: {launches}")
     need(not res.survivor_overflow, "survivor cap overflowed")
     need(len(res.candidates) > 0, "no candidates at 1080p")
@@ -1133,7 +1313,8 @@ def main() -> int:
             cap=vdet.cap, nodes=vdet.table.n_clf * vdet.table.T,
             tilted=vdet.table.has_tilted, tree=vdet.is_tree)
         vres, vl = drive(vdet, gray)
-        need(all(vl[k] > 0 for k in ("haar_front", "compact", "haar_tail"))
+        need(all(vl[k] > 0 for k in ("haar_front", "compact", "haar_tail",
+                                     "tail_rows"))
              and vl["haar_tail2"] == 0,
              f"{cname}: the v1 path did not run its kernels: {vl}")
         same_as_plain(vdet, gray, vres, f"1080p {cname}")
@@ -1157,7 +1338,8 @@ def main() -> int:
     bl = ct.PyramidDetector(spec, SHAPE, device="cuda", strategy="block",
                             **KNOBS)
     bres, bll = drive(bl, gray)
-    need(bll["haar_tail"] > 0 and bll["haar_tail2"] == 0,
+    need(bll["haar_tail"] > 0 and bll["tail_rows"] > 0
+         and bll["haar_tail2"] == 0,
          f"strategy=block did not take the v1 tail: {bll}")
     need(np.array_equal(bres.candidates, res.candidates)
          and np.array_equal(bres.boxes, res.boxes),
@@ -1165,6 +1347,83 @@ def main() -> int:
     say("block", cascade=CASCADE, candidates=len(bres.candidates),
         launches=json.dumps(bll), equal_to_per_stage=True)
     del bl
+
+    # strategy="direct" on frontalface_alt: the stencil product, then the
+    # decisions kernel; the card against the CPU in the PARITY bounds
+    t0 = time.perf_counter()
+    dr = ct.PyramidDetector(spec, SHAPE, device="cuda", strategy="direct",
+                            **KNOBS)
+    dres, dl = drive(dr, gray)
+    need(all(dl[k] > 0 for k in ("haar_front", "compact", "tail_rows"))
+         and dl["haar_tail"] == 0 and dl["haar_tail2"] == 0,
+         f"strategy=direct did not run its kernels: {dl}")
+    t1 = time.perf_counter()
+    cres = ct.PyramidDetector(spec, SHAPE, device="cpu", strategy="direct",
+                              **KNOBS).detect(gray, MIN_NEIGHBORS)
+    cpu_s = time.perf_counter() - t1
+    direct = dict(parity(dres, cres), launches=dl, cpu_seconds=cpu_s,
+                  per_stage=parity(dres, res))
+    need(direct["jaccard"] >= 0.995 and direct["boxes_matched"],
+         f"strategy=direct on the card misses the PARITY bounds against "
+         f"the CPU: {direct}")
+    dfr = dr.put(gray)
+    direct["ms_per_frame"] = timed(lambda: dr._detect_device(dfr, dr.cap),
+                                   5)
+    direct["per_stage_ms_per_frame"] = timed(
+        lambda: det._detect_device(dfr, det.cap), 5)
+    direct["seconds"] = time.perf_counter() - t0
+    say("direct", cascade=CASCADE, candidates=len(dres.candidates),
+        **{k: json.dumps(v) if isinstance(v, dict) else v
+           for k, v in direct.items()})
+    del dr
+
+    # ROC at 1080p: frontalface_alt through tail2, frontalface_alt2
+    # through the v1 tail; the kernels' packed ROC readback bit-equal to
+    # the plain path's on the card
+    roc = {}
+    for cname, tail in ((CASCADE, "haar_tail2"), (V1_CASCADES[0],
+                                                  "tail_rows")):
+        rd = ct.PyramidDetector(ct.load_cascade(cname), SHAPE,
+                                device="cuda", output_levels=True, **KNOBS)
+        (rb, rlv, rw, rov), rl = counted(
+            lambda: rd.candidates_with_levels(gray))
+        need(rl[tail] > 0 and rl["haar_front"] > 0 and rl["compact"] > 0,
+             f"ROC of {cname} did not run its kernels: {rl}")
+        need(len(rb) > 0 and not rov, f"ROC of {cname}: no windows")
+        fr = rd.put(gray)
+        pk = rd._detect_device(fr, rd.cap)["packed_roc"]
+        pp = rd._detect_device(fr, rd.cap, plain=True)["packed_roc"]
+        need(bits_equal(pk, pp), f"ROC of {cname}: levels or weights "
+             f"differ from the plain path on the card")
+        roc[cname] = dict(windows=len(rb), launches=rl, front_k=rd.front_k,
+                          levels=np.bincount(rlv).tolist()[-5:],
+                          max_abs_err=max_abs_err(pk, pp),
+                          ms_per_frame=timed(
+                              lambda: rd._detect_device(fr, rd.cap), 5))
+        say("roc", cascade=cname, equal_to_plain=True,
+            **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+               for k, v in roc[cname].items()})
+        del rd
+
+    # float64 on the card: the plain versions, box for box with the CPU
+    f64 = {}
+    for cname in (CASCADE, V1_CASCADES[0]):
+        fs = ct.load_cascade(cname)
+        g64 = ct.PyramidDetector(fs, VGA, device="cuda",
+                                 dtype=torch.float64, **SWEEP_KNOBS)
+        t1 = time.perf_counter()
+        (gc, go), fl = counted(lambda: g64.candidates(vga))
+        card_s = time.perf_counter() - t1
+        need(not any(fl.values()), f"float64 launched a kernel: {fl}")
+        pc, po = ct.PyramidDetector(fs, VGA, device="cpu",
+                                    dtype=torch.float64,
+                                    **SWEEP_KNOBS).candidates(vga)
+        need(go == po and gc.shape == pc.shape and bool((gc == pc).all())
+             and len(gc) > 0,
+             f"float64 {cname}: card candidates differ from the CPU")
+        f64[cname] = dict(candidates=len(gc), card_seconds=card_s)
+    say("float64", shape=f"{VGA[0]}x{VGA[1]}", equal_to_cpu=True,
+        **{k: json.dumps(v) for k, v in f64.items()})
 
     # VGA sweep of every cascade the v1 tail serves: card = CPU
     t0 = time.perf_counter()
@@ -1251,9 +1510,12 @@ def main() -> int:
 
     entry = dict(results)
     entry["haar_tail"] = v1[a2]["haar_tail"]
+    entry["tail_rows"] = v1[a2]["tail_rows"]
     paths = {CASCADE: launches, "photo_scene": photo_launches,
-             **v1_launches, "mb_vpu3": mb_launches}
-    path_of = {"haar_tail": v1_launches[a2], "chain": mb_launches}
+             **v1_launches, "mb_vpu3": mb_launches,
+             "direct": direct["launches"]}
+    path_of = {"haar_tail": v1_launches[a2], "chain": mb_launches,
+               "tail_rows": v1_launches[a2]}
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=path_of.get(k, launches)[k], **entry[k])
@@ -1269,6 +1531,9 @@ def main() -> int:
     record["ms_per_frame"] = ms_per_frame
     record["vga_sweep"] = sweep
     record["zoo_tails"] = zoo_tails
+    record["direct"] = direct
+    record["roc"] = roc
+    record["float64"] = f64
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,11 +1,12 @@
 """clfacedetection_torch — the PyTorch/CUDA port of clfacedetection_tpu.
 
 Viola-Jones object detection with OpenCV's scale-image semantics: cascade
-loading, a packed resize pyramid, integral images, and four hand-written
+loading, a packed resize pyramid, integral images, and five hand-written
 CUDA kernels for Hopper (dense front, ordered compaction, the tail2
-cascade walk and the v1 all-nodes tail) behind plain PyTorch twins that
-run on the CPU; a fifth, the op-chain microbenchmark, serves the tool
-``tools/mb_vpu3.py``.  Imports torch and numpy, never jax.
+cascade walk, the v1 all-nodes tail and its votes and stage sums) behind
+plain PyTorch twins that run on the CPU; a sixth, the op-chain
+microbenchmark, serves the tool ``tools/mb_vpu3.py``.  Imports torch and
+numpy, never jax.
 """
 
 __version__ = "0.1.0"

@@ -5,10 +5,11 @@ Port of ``clfacedetection_tpu/api.py`` in scale-image mode:
 ``detect_objects`` (the reference's ``clodDetectObjects``, clod.h:61-81).
 Detectors are built per (frame shape, parameters) and cached.
 
-Every cascade of the zoo runs.  The entry points run on the card unless
-given ``device="cpu"``, and raise without one.  Not ported yet (ROADMAP
-Queue 2): the "direct" strategy, scale-cascade mode, Canny pruning,
-find-biggest-object, the ROC overload and the numpy golden fallback.
+Every cascade of the zoo runs, with every ``clod_flags`` strategy and
+the ROC overload (``detect_multi_scale3``).  The entry points run on the
+card unless given ``device="cpu"``, and raise without one.  Not ported
+yet (ROADMAP Queue 1): scale-cascade mode with its Canny pruning,
+find-biggest-object and the numpy golden path.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .detect.detector import DetectionResult
+from .detect.grouping import group_rectangles_levels
 from .detect.pyramid import PyramidDetector
 from .models.spec import CascadeSpec
 from .models.zoo import load_cascade
@@ -121,15 +123,37 @@ class CascadeClassifier:
             **knobs)
         return res.boxes, res.neighbors
 
+    def detect_multi_scale3(self, image, scale_factor: float = 1.1,
+                            min_neighbors: int = 3,
+                            min_size: Tuple[int, int] = (0, 0),
+                            max_size: Optional[Tuple[int, int]] = None,
+                            **knobs):
+        """The ROC overload (cv2's detectMultiScale3 with
+        outputRejectLevels): (boxes, reject_levels, level_weights).  With
+        ``min_neighbors`` 0 every window that exits within 4 stages of the
+        end (or that a stage tree accepts), with its exit stage and stage
+        sum; else those grouped by ``group_rectangles_levels``
+        (JAX ``api.py:156-189``, scale-image mode)."""
+        gray = _to_gray(image)
+        det = self._detector(gray.shape, scale_factor, min_size, max_size,
+                             output_levels=True, **knobs)
+        boxes, levels, weights, _ = det.candidates_with_levels(gray)
+        if min_neighbors != 0:
+            return group_rectangles_levels(boxes, levels, weights,
+                                           min_neighbors, eps=0.2)
+        return boxes, levels, weights
+
     def detect_multi_scale_full(self, image, scale_factor: float = 1.1,
                                 min_neighbors: int = 3, flags: int = 0,
                                 min_size: Tuple[int, int] = (0, 0),
                                 max_size: Optional[Tuple[int, int]] = None,
                                 **knobs) -> DetectionResult:
-        if flags & (CV_HAAR_DO_CANNY_PRUNING | CV_HAAR_FIND_BIGGEST_OBJECT):
+        # CV_HAAR_DO_CANNY_PRUNING acts in scale-cascade mode only
+        # (tempcv.cpp:1337-1342), so scale-image mode drops it, as the
+        # JAX package does (api.py:227-230)
+        if flags & CV_HAAR_FIND_BIGGEST_OBJECT:
             raise NotImplementedError(
-                "Canny pruning and find-biggest-object are not ported yet "
-                "(ROADMAP Queue 2)")
+                "find-biggest-object is not ported yet (ROADMAP Queue 1)")
         gray = _to_gray(image)
         det = self._detector(gray.shape, scale_factor, min_size, max_size,
                              **knobs)
@@ -153,15 +177,14 @@ def detect_objects(image, cascade: Union[str, CascadeSpec],
     - ``CLOD_BLOCK_IMPLEMENTATION`` (or ``CLOD_PRECOMPUTE_FEATURES``
       alone) -> ``strategy="block"``, front 2: the v1 tail, every node's
       value for every survivor;
-    - neither bit (the "direct" strategy) is not ported yet and raises."""
+    - neither bit -> ``strategy="direct"``, front 2: every node's value
+      from one stencil matrix product (JAX's XLA tail)."""
     if flags & CLOD_PER_STAGE_ITERATIONS:
         strategy, front = "per_stage", 4
     elif flags & (CLOD_BLOCK_IMPLEMENTATION | CLOD_PRECOMPUTE_FEATURES):
         strategy, front = "block", 2
     else:
-        raise NotImplementedError(
-            "the direct strategy (neither CLOD_PER_STAGE_ITERATIONS nor "
-            "CLOD_BLOCK_IMPLEMENTATION) is not ported yet (ROADMAP Queue 2)")
+        strategy, front = "direct", 2
     spec = cascade if isinstance(cascade, CascadeSpec) else \
         load_cascade(cascade)
     clf = CascadeClassifier(spec, device=device)

@@ -3,7 +3,7 @@
 Port of the host part of ``clfacedetection_tpu/detect/detector.py``
 (lines 67-175): the stage-tree paths, the classifier-major padded tables
 and the result record.  The scale-cascade detector itself is not ported
-yet (ROADMAP Queue 2).
+yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

@@ -9,18 +9,24 @@ level, and a static visit lattice keeps every window inside its level.
 Per batch of frames the device pipeline is
 
     canvas + integrals (plain torch) -> dense front (kernel)
-    -> survivor compaction (kernel) -> survivor tail (kernel)
+    -> survivor compaction (kernel) -> survivor tail (kernels)
     -> accept compaction (kernel) -> ONE packed int32 readback
        [n_surv, n_acc, acc_y[acap], acc_x[acap]] per frame
 
-with no host synchronisation inside it.  Two survivor tails, as in the
+with no host synchronisation inside it.  Three survivor tails, as in the
 JAX package (``pyramid.py:427-481``): tail2 walks the cascade inside its
 kernel with early exit and serves stump cascades with upright features,
 sequential stages and windows up to 31 px wide; the v1 tail computes
-every node's value in its kernel and leaves CART walks, stage sums and
-stage-tree path masks to plain torch here.  It serves every other
-cascade of the zoo (CART trees, tilted features, stage trees, wide
-windows) and ``strategy="block"``.
+every node's value in one kernel (``haar_tail``) and takes the CART
+walks, stage sums and stage-tree path tests in a second (``tail_rows``).
+It serves every other cascade of the zoo (CART trees, tilted features,
+stage trees, wide windows) and ``strategy="block"``.
+``strategy="direct"`` takes the node values from one stencil matrix
+product instead (JAX's XLA tail; ``ops/stencil.py``), then the same
+``tail_rows``.  With ``output_levels`` every frame also packs its ROC
+windows (exit stage and stage sum, tempcv.cpp:1084-1095) into a second
+readback.  float64 runs the plain versions, on the card too: the
+kernels are float32, as the JAX package's Pallas path is.
 """
 
 from __future__ import annotations
@@ -41,15 +47,17 @@ from ..ops.haar_tail import haar_tail, tail_values_plain
 from ..ops.haar_tail2 import haar_tail2, tail2_plain
 from ..ops.integral import IntegralImages, integral_images
 from ..ops.resize import resize_bilinear_u8, resize_plan
+from ..ops.stencil import build_stencils, stencil_values
+from ..ops.tail_rows import tail_rows, tail_rows_plain
 from .detector import DetectionResult, _build_clf_tables, _stage_paths
 from .grouping import group_rectangles
 
 __all__ = ["PyramidDetector", "PyramidPlan", "default_device"]
 
 ACCEPT_CAP = 4096   # accepted windows read back per frame in one array
-STRATEGIES = (None, "per_stage", "block")
-# float32 elements of one chunk of the v1 tail's vote tensors
-_VOTE_CHUNK_ELEMS = 1 << 26
+STRATEGIES = (None, "per_stage", "block", "direct")
+# node values of one chunk of the direct strategy's product
+_DIRECT_CHUNK_ELEMS = 1 << 26
 
 
 def default_device() -> torch.device:
@@ -61,114 +69,6 @@ def default_device() -> torch.device:
             "no CUDA device: pass device=\"cpu\" to run the plain PyTorch "
             "versions of the kernels on the CPU")
     return torch.device("cuda")
-
-
-def _cart_votes(nv: torch.Tensor, svnf: torch.Tensor, table: CascadeTable,
-                c0: int) -> torch.Tensor:
-    """Classifier votes [B, cap, m] from node values [B, cap, m, T] of
-    classifiers ``c0..c0+m-1`` (JAX ``_cart_votes``, pyramid.py:68-116):
-    ``cmp = node < thr * vnf`` with the product rounded first, then the
-    walk from node 0 to the reached leaf's alpha.  Padded nodes are never
-    walked: links only point to a classifier's own later nodes."""
-    m, T = nv.shape[2], nv.shape[3]
-    dev, dtype = nv.device, nv.dtype
-    sl = slice(c0, c0 + m)
-    thr = torch.from_numpy(table.thr[sl]).to(dev, dtype)          # [m, T]
-    cmp = nv < thr * svnf[..., None, None]
-    alpha = torch.from_numpy(table.alpha[sl]).to(dev, dtype)      # [m, T+1]
-    rows = torch.arange(m, device=dev)
-    if T == 1:                       # stumps: leaves alpha[-left/-right]
-        a_l = alpha[rows, torch.from_numpy(-table.left[sl, 0]).to(dev)]
-        a_r = alpha[rows, torch.from_numpy(-table.right[sl, 0]).to(dev)]
-        return torch.where(cmp[..., 0], a_l, a_r)
-    left = torch.from_numpy(table.left[sl]).to(dev).long()
-    right = torch.from_numpy(table.right[sl]).to(dev).long()
-    idx = torch.zeros(cmp.shape[:3], dtype=torch.long, device=dev)
-    val = torch.zeros(cmp.shape[:3], dtype=dtype, device=dev)
-    done = torch.zeros(cmp.shape[:3], dtype=torch.bool, device=dev)
-    for _ in range(T):
-        c = cmp.gather(3, idx[..., None])[..., 0]
-        nxt = torch.where(c, left[rows, idx], right[rows, idx])
-        leaf = nxt <= 0
-        av = alpha[rows, (-nxt).clamp(0, T)]
-        val = torch.where(leaf & ~done, av, val)
-        done = done | leaf
-        idx = nxt.clamp(0, T - 1)
-    return val
-
-
-def tail_rows(values: torch.Tensor, svnf: torch.Tensor, valid: torch.Tensor,
-              table: CascadeTable, front_k: int,
-              paths: Optional[List[List[int]]] = None) -> torch.Tensor:
-    """The v1 tail's decisions from its node values [B, cap, n_clf*T], in
-    tail2's row format [B, cap, 4]: vnf, alive, exit stage, stage sum.
-
-    Stage sums are sequential in classifier order (the front's order, so
-    front and tail agree, and the card and the CPU agree bit for bit).
-    Sequential cascades (``paths=None``) evaluate stages
-    ``front_k..S-1``: alive = all pass, exit stage = the first failing one
-    (S on a pass), stage sum = that stage's.  Stage trees evaluate every
-    stage and accept when any root-to-leaf path passes all its stages
-    (``_tail_accept_chunk``, pyramid.py:725-749): exit stage S on accept
-    and 0 otherwise, stage sum = the first passing path's leaf stage.  Pad
-    slots give (0, 0, S, 0)."""
-    B, cap = valid.shape
-    S, T, dev = table.n_stages, table.T, values.device
-    dtype = svnf.dtype
-    s_lo = 0 if paths is not None else min(front_k, S)
-    ns = S - s_lo
-    if ns == 0:
-        alive = valid
-        level = torch.full_like(svnf, float(S))
-        weight = torch.zeros_like(svnf)
-    else:
-        # stages in groups whose votes fit one chunk (a group holds at
-        # least one stage), so no [B, cap, n_clf] vote tensor is built
-        ssum = torch.empty((B, cap, ns), dtype=dtype, device=dev)
-        step = max(1, _VOTE_CHUNK_ELEMS // max(1, B * cap * T))
-        c0s, cnts = table.stage_clf0, table.stage_cnt
-        st = s_lo
-        while st < S:
-            en = st + 1
-            while en < S and c0s[en] + cnts[en] - c0s[st] <= step:
-                en += 1
-            ca, cb = int(c0s[st]), int(c0s[en - 1] + cnts[en - 1])
-            nv = values[:, :, ca * T:cb * T].reshape(B, cap, cb - ca, T)
-            votes = _cart_votes(nv.to(dtype), svnf, table, ca)
-            ofs = torch.from_numpy(c0s[st:en] - ca).to(dev).long()
-            cnt = torch.from_numpy(cnts[st:en]).to(dev).long()
-            g = torch.zeros((B, cap, en - st), dtype=dtype, device=dev)
-            for j in range(int(cnts[st:en].max())):
-                v = votes.index_select(2, (ofs + j).clamp(max=cb - ca - 1))
-                g = torch.where(j < cnt, g + v, g)
-            ssum[:, :, st - s_lo:en - s_lo] = g
-            del votes, nv
-            st = en
-        del values
-        thr = torch.from_numpy(table.stage_thr[s_lo:]).to(dev, dtype)
-        st_pass = ssum >= thr                                # [B, cap, ns]
-        if paths is None:
-            fail = ~st_pass
-            alive = valid & ~fail.any(dim=2)
-            first = fail.to(torch.uint8).argmax(dim=2)
-            level = torch.where(fail.any(dim=2), (first + s_lo).to(dtype),
-                                float(S))
-            widx = torch.where(fail.any(dim=2), first, ns - 1)
-        else:
-            pm = np.zeros((len(paths), S), bool)
-            for i, p in enumerate(paths):
-                pm[i, p] = True
-            off_path = torch.from_numpy(~pm).to(dev)
-            per_path = (st_pass[:, :, None, :] | off_path).all(dim=3)
-            accept = per_path.any(dim=2)
-            alive = valid & accept
-            leaf = torch.tensor([p[-1] for p in paths], device=dev)
-            widx = leaf[per_path.to(torch.uint8).argmax(dim=2)]
-            level = torch.where(accept, float(S), 0.0).to(dtype)
-        weight = ssum.gather(2, widx[..., None])[..., 0]
-    return torch.stack([torch.where(valid, svnf, 0.0), alive.to(dtype),
-                        torch.where(valid, level, float(S)),
-                        torch.where(valid, weight, 0.0)], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,13 +201,18 @@ class PyramidDetector:
 
     ``device`` is where the pipeline runs: the card by default (an error
     without one); ``device="cpu"`` runs the plain PyTorch versions.  On a
-    CUDA device the front, compaction and tail run as CUDA kernels in
-    float32; on the CPU their plain versions run, in float32 or float64.
-    ``cap`` is the survivor slot count per frame; it grows 4x while a
-    frame overflows it (``candidates``/``detect``).  ``strategy`` picks the
-    survivor tail: ``None``/``"per_stage"`` take tail2 where the cascade
-    allows it and the v1 tail otherwise; ``"block"`` always takes the v1
-    tail."""
+    CUDA device the front, compaction and tails run as CUDA kernels in
+    float32, and the plain versions in float64 (the JAX package's Pallas
+    path is float32 only, ``pyramid.py:417-419, 439-443``); on the CPU
+    the plain versions run, in float32 or float64.  ``cap`` is the
+    survivor slot count per frame; it grows 4x while a frame overflows it
+    (``candidates``/``detect``).  ``strategy`` picks the survivor tail:
+    ``None``/``"per_stage"`` take tail2 where the cascade allows it and
+    the v1 tail otherwise; ``"block"`` always takes the v1 tail;
+    ``"direct"`` the stencil product.  ``output_levels`` adds the ROC
+    output (``candidates_with_levels``); for sequential cascades it lowers
+    ``front_k`` to ``n_stages - 4``, so that every window the ROC reports
+    reaches the tail (JAX ``pyramid.py:370-376``)."""
 
     def __init__(self, spec: CascadeSpec, image_shape: Tuple[int, int],
                  scale_factor: float = 1.1,
@@ -318,6 +223,7 @@ class PyramidDetector:
                  dtype: torch.dtype = torch.float32,
                  max_stages: Optional[int] = None,
                  strategy: Optional[str] = None,
+                 output_levels: bool = False,
                  device=None):
         self.spec = spec
         self.H, self.W = int(image_shape[0]), int(image_shape[1])
@@ -325,14 +231,6 @@ class PyramidDetector:
             else default_device()
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
-        if self.device.type == "cuda" and dtype != torch.float32:
-            raise NotImplementedError(
-                "float64 runs on the CPU only: the CUDA kernels are float32 "
-                "(as the JAX package's Pallas path is)")
-        if strategy == "direct":
-            raise NotImplementedError(
-                "strategy \"direct\" is not ported yet (ROADMAP Queue 2: "
-                "the direct strategy)")
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}")
         self.strategy = strategy
@@ -355,6 +253,12 @@ class PyramidDetector:
                     common = i
                     break
             self.front_k = max(1, min(self.front_k, common))
+        self.output_levels = bool(output_levels)
+        if self.output_levels and not self.is_tree:
+            # windows that exit within 4 stages of the end are reported
+            # (tempcv.cpp:1087), so they must reach the tail; a stage
+            # tree reports accepted windows only (pyramid.py:370-376)
+            self.front_k = max(1, min(self.front_k, self.n_stages - 4))
         self.plan = PyramidPlan.build(spec, image_shape, scale_factor,
                                       min_size, max_size)
         self.n_levels = len(self.plan.levels)
@@ -369,9 +273,16 @@ class PyramidDetector:
         self.table = CascadeTable.build(c, tables, sc1.equ_corner_y,
                                         sc1.equ_corner_x, sc1.inv_area)
         # tail2 where the JAX package takes it (pyramid.py:476-481)
-        self.use_tail2 = (strategy != "block" and self.table.T == 1
+        self.use_tail2 = (strategy not in ("block", "direct")
+                          and self.table.T == 1
                           and not self.is_tree and not c.has_tilted
                           and w0 + 1 <= 32)
+        if strategy == "direct":
+            # JAX's (h0 + 1) x (w0 + 1) patch (pyramid.py:509-537)
+            sten = build_stencils(self.table, h0 + 1, w0 + 1)
+            self._stencils = tuple(
+                None if m is None else torch.from_numpy(m).to(
+                    self.device, dtype) for m in sten)
         vm = self.plan.visit_mask(w0, h0)
         self.n_visit = int(vm.sum())
         if cap is None:
@@ -412,10 +323,12 @@ class PyramidDetector:
         """The device pipeline over [B, H, W] uint8 frames on
         ``self.device``; no host synchronisation.  ``plain`` runs the
         plain PyTorch versions of the kernels on the same device (the
-        reference a card run is checked against)."""
+        reference a card run is checked against); float64 always does."""
+        plain = plain or self.dtype == torch.float64
         front_fn = front_plain if plain else haar_front
         compact_fn = compact_plain if plain else compact
         B = frames.shape[0]
+        n = self.hv * self.wv
         s, hi, lo, tilted = self._prep_planes(frames)
         front, vnf = front_fn(s, hi, lo, self._visit, self.table,
                               self.front_k, self.dtype, tilted)
@@ -432,22 +345,66 @@ class PyramidDetector:
         acc_y = torch.div(acc_flat, self.wv, rounding_mode="floor")
         packed = torch.cat([n_surv[:, None], n_acc[:, None], acc_y,
                             acc_flat - acc_y * self.wv], dim=1)
-        return dict(packed=packed, surv_idx=surv_idx, ok=ok)
+        out = dict(packed=packed, surv_idx=surv_idx, ok=ok)
+        if self.output_levels:
+            # every window whose exit stage is within 4 of the end, pass
+            # or fail (pyramid.py:1124-1130), in one packed array
+            # [n_surv, n_roc, y, x, level, weight] of the pipeline dtype
+            # (pyramid.py:1090-1108)
+            valid = (surv_idx >= 0) & (surv_idx < n)
+            ok_roc = (ok | (self.n_stages - rows[..., 2] < 4)) & valid
+            roc, n_roc = compact_fn(ok_roc, acap)
+            sel = torch.where(roc < cap, roc, 0).long()
+            flat = surv_idx.gather(1, sel)
+            y = torch.div(flat, self.wv, rounding_mode="floor")
+            dt = rows.dtype
+            out["packed_roc"] = torch.cat([
+                n_surv[:, None].to(dt), n_roc[:, None].to(dt), y.to(dt),
+                (flat - y * self.wv).to(dt), rows[..., 2].gather(1, sel),
+                rows[..., 3].gather(1, sel)], dim=1)
+            out.update(ok_roc=ok_roc, rows=rows)
+        return out
 
     def _tail_v1(self, s, tilted, vnf, surv_idx, plain: bool = False):
-        """v1 tail: every node's value (kernel), then votes, stage sums
-        and accept (plain torch), as tail2's rows [B, cap, 4]."""
-        tail_fn = tail_values_plain if plain else haar_tail
+        """The v1 tail: every node's value (``haar_tail``, or the stencil
+        product for ``strategy="direct"``), then votes, stage sums and
+        accept (``tail_rows``), as tail2's rows [B, cap, 4]."""
+        rows_fn = tail_rows_plain if plain else tail_rows
         n = self.hv * self.wv
         valid = (surv_idx >= 0) & (surv_idx < n)
         svnf = vnf.reshape(vnf.shape[0], -1).gather(
             1, torch.where(valid, surv_idx, 0).long())
-        # the node values are passed on without a name here, so that
-        # tail_rows can free them once the stage sums are taken
-        return tail_rows(tail_fn(s, tilted, surv_idx, self.hv, self.wv,
-                                 self.table, self.dtype),
-                         svnf, valid, self.table, self.front_k,
-                         self.paths if self.is_tree else None)
+        paths = self.paths if self.is_tree else None
+        if self.strategy == "direct":
+            return self._tail_direct(s, tilted, svnf, surv_idx, rows_fn,
+                                     paths)
+        tail_fn = tail_values_plain if plain else haar_tail
+        # the node values are passed on without a name here, so that the
+        # plain version can free them once the stage sums are taken
+        return rows_fn(tail_fn(s, tilted, surv_idx, self.hv, self.wv,
+                               self.table, self.dtype),
+                       svnf, surv_idx, n, self.table, self.front_k, paths)
+
+    def _tail_direct(self, s, tilted, svnf, surv_idx, rows_fn, paths):
+        """``strategy="direct"``: node values from the stencil product,
+        chunked over slots so that a chunk's values stay under
+        ``_DIRECT_CHUNK_ELEMS`` (``_tail_accept``, pyramid.py:644-669),
+        then ``rows_fn`` on each chunk."""
+        B, cap = surv_idx.shape
+        n = self.hv * self.wv
+        nn = self.table.n_clf * self.table.T
+        step = max(1, _DIRECT_CHUNK_ELEMS // max(1, B * nn))
+        sten_sum, sten_tilt = self._stencils
+        out = []
+        for a in range(0, cap, step):
+            idx = surv_idx[:, a:a + step].contiguous()
+            vals = stencil_values(s, tilted, idx, self.hv, self.wv,
+                                  self.h0 + 1, self.w0 + 1, sten_sum,
+                                  sten_tilt)
+            out.append(rows_fn(vals, svnf[:, a:a + step].contiguous(), idx,
+                               n, self.table, self.front_k, paths))
+            del vals
+        return torch.cat(out, dim=1)
 
     def put(self, frames) -> torch.Tensor:
         """[B, H, W] (or [H, W]) uint8 -> a [B, H, W] tensor on the
@@ -504,6 +461,46 @@ class PyramidDetector:
             res = self.readback(self._detect_device(frames, self.cap),
                                 self.cap)
         return res[0]
+
+    def candidates_with_levels(self, gray):
+        """(boxes, reject_levels, level_weights, overflow): the ROC output
+        of one frame (tempcv.cpp:1084-1095), with the survivor cap regrown
+        as in ``candidates``; needs ``output_levels=True``.  ONE packed
+        readback, plus a second only when more than ``ACCEPT_CAP``
+        windows qualify (pyramid.py:1246-1285)."""
+        if not self.output_levels:
+            raise ValueError("build the detector with output_levels=True")
+        empty = (np.zeros((0, 4), np.int32), np.zeros(0, np.int32),
+                 np.zeros(0, np.float64))
+        if self.n_levels == 0:
+            return empty + (False,)
+        frames = self.put(gray)
+        if frames.shape[0] != 1:
+            raise ValueError("candidates_with_levels takes one frame")
+        dev = self._detect_device(frames, self.cap)
+        pr = dev["packed_roc"][0].cpu().numpy()
+        while pr[0] > self.cap and self.cap < self.n_visit:
+            self.cap = min(self.cap * 4, self.n_visit)
+            dev = self._detect_device(frames, self.cap)
+            pr = dev["packed_roc"][0].cpu().numpy()
+        overflow = bool(pr[0] > self.cap)
+        acap = (len(pr) - 2) // 4
+        n_roc = int(pr[1])
+        if n_roc == 0:
+            return empty + (overflow,)
+        if n_roc <= acap:
+            ay = pr[2:2 + n_roc].astype(np.int64)
+            ax = pr[2 + acap:2 + acap + n_roc].astype(np.int64)
+            lvl = pr[2 + 2 * acap:2 + 2 * acap + n_roc].astype(np.int32)
+            wgt = pr[2 + 3 * acap:2 + 3 * acap + n_roc].astype(np.float64)
+        else:
+            ok = dev["ok_roc"][0].cpu().numpy()
+            flat = dev["surv_idx"][0].cpu().numpy()[ok].astype(np.int64)
+            rows = dev["rows"][0].cpu().numpy()[ok]
+            ay, ax = flat // self.wv, flat % self.wv
+            lvl = rows[:, 2].astype(np.int32)
+            wgt = rows[:, 3].astype(np.float64)
+        return self.plan.boxes_for(ay, ax), lvl, wgt, overflow
 
     def detect(self, gray, min_neighbors: int = 3) -> DetectionResult:
         cand, overflow = self.candidates(gray)

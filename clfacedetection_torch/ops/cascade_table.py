@@ -39,6 +39,13 @@ the three weights (f32 bits), and zero records up to a multiple of
 once for 32 survivors, and the records of ``NODE_VIEW_PAD`` nodes at a
 time.
 
+The decisions kernel (``csrc/tail_rows.cu``) reads a fourth view,
+``rows``: the stage records, then ``ROW_WORDS`` per classifier: the
+thresholds of its three nodes (f32 bits), their left links, their right
+links, ``alpha[0..3]`` (f32 bits) and three zeros; absent nodes and
+leaves are zeros.  64 bytes a classifier: a lane reads one record and
+walks it for every live slot of its warp.
+
 Rects of weight 0 are left out, as the JAX package's front skips them;
 the rest keep their order.  Absent rects and nodes are zeros.  Source:
 ``_build_clf_tables(c, [1.0])`` (the JAX package's
@@ -57,7 +64,8 @@ from ..detect.detector import _ClfTables
 from ..models.compile import CompiledCascade
 
 __all__ = ["CascadeTable", "STAGE_WORDS", "CLF_HEAD", "NODE_WORDS",
-           "MAX_T", "STUMP_WORDS", "NODE_VIEW_WORDS", "NODE_VIEW_PAD"]
+           "MAX_T", "STUMP_WORDS", "NODE_VIEW_WORDS", "NODE_VIEW_PAD",
+           "ROW_WORDS"]
 
 STAGE_WORDS = 4
 CLF_HEAD = 8
@@ -66,6 +74,7 @@ MAX_T = 3
 STUMP_WORDS = 20
 NODE_VIEW_WORDS = 16
 NODE_VIEW_PAD = 128
+ROW_WORDS = 16
 
 
 @dataclasses.dataclass
@@ -90,6 +99,7 @@ class CascadeTable:
     stumps: Optional[np.ndarray]  # int32 [S*STAGE_WORDS + C*STUMP_WORDS],
     #                               None unless stumps with upright rects
     nodes: np.ndarray         # int32 [C*T (padded)*NODE_VIEW_WORDS]
+    rows: np.ndarray          # int32 [S*STAGE_WORDS + C*ROW_WORDS]
     _dev: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # table words the front kernel stages, by front_k (ops/haar_front.py
     # front_launch)
@@ -186,18 +196,27 @@ class CascadeTable:
             raise ValueError("a rect corner lies left of or above its window")
         node_view = _pack_nodes(n_rects, tilted, corners, weights, max_dy,
                                 max_dx)
+        rv = np.zeros((n, ROW_WORDS), np.int32)
+        rv[:, 0:T] = thr.view(np.int32)
+        rv[:, 3:3 + T] = left
+        rv[:, 6:6 + T] = right
+        rv[:, 9:10 + T] = alpha.view(np.int32)
+        rows = np.concatenate([st.reshape(-1), rv.reshape(-1)])
         return cls(s_c0, s_cnt, s_thr, nodes, alpha, n_rects, tilted, left,
                    right, thr, weights, corners, equ, float(inv_area),
-                   max_dy, max_dx, packed, stumps, node_view)
+                   max_dy, max_dx, packed, stumps, node_view, rows)
 
     def device_buffer(self, device, stumps: bool = False,
-                      nodes: bool = False) -> torch.Tensor:
-        """The packed table, or with ``stumps`` its stump view, or with
-        ``nodes`` its node view, on ``device`` (copied once per device)."""
+                      nodes: bool = False, rows: bool = False
+                      ) -> torch.Tensor:
+        """The packed table, or with ``stumps`` its stump view, with
+        ``nodes`` its node view, with ``rows`` its rows view, on ``device``
+        (copied once per device)."""
         if stumps and self.stumps is None:
             raise ValueError("the cascade has no stump view: it holds CART "
                              "classifiers or tilted or non-upright rects")
-        view = "stumps" if stumps else "nodes" if nodes else "packed"
+        view = ("stumps" if stumps else "nodes" if nodes
+                else "rows" if rows else "packed")
         key = f"{torch.device(device)}/{view}"
         buf = self._dev.get(key)
         if buf is None:

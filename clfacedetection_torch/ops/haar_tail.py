@@ -5,8 +5,9 @@ Port of the TPU kernel ``clfacedetection_tpu/ops/haar_tail.py``
 a pad value outside ``[0, Hv*Wv)``) the value of every node of the
 cascade, float32 ``[B, cap, n_clf * T]``, node ``(c, t)`` in column
 ``c * T + t``.  Nodes a classifier does not have, and pad slots, are 0.
-Votes, CART walks, stage sums and path masks run on this output in
-``detect/pyramid.py``, as the JAX package runs them in XLA.
+Votes, CART walks, stage sums and path masks run on this output in a
+second kernel (``ops/tail_rows.py``), where the JAX package runs them in
+XLA.
 
 Node values use the front's numerics (``haar_front``): each rect is the
 int32 difference of its four corners in the ``sum`` or ``tilted`` plane,

@@ -2,6 +2,9 @@
 
 Port of ``clfacedetection_tpu/ops/integral.py``:
 
+* gray: OpenCV's ``cvtColor`` (``mode="cv"``) and the reference GPU
+  kernel's float multiply-accumulate (``mode="clif"``), per frame or per
+  row, and ``invert``; bit-equal to JAX's on the CPU;
 * ``sum``: int32, exact (255 * 4M pixels < 2^31);
 * the squared sum as two int32 planes, ``sq_hi = (p*p) >> 8`` and
   ``sq_lo = (p*p) & 0xFF``, so 4-corner window differences are exact
@@ -16,39 +19,92 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["bgr_to_gray", "bgra_to_gray", "IntegralImages",
-           "integral_images", "integral_2d", "tilted_integral"]
+__all__ = ["bgr_to_gray", "bgr_to_gray_per_row", "bgra_to_gray", "invert",
+           "IntegralImages", "integral_images", "integral_2d",
+           "tilted_integral"]
 
 # OpenCV's 15-bit fixed-point BGR->gray coefficients (cvtColor BGR2GRAY)
 _CV_SHIFT = 15
 _CV_R, _CV_G, _CV_B = 9798, 19235, 3735
+# the reference GPU kernel's float coefficients (clif.cl:4-18), as the
+# float32 constants that JAX multiplies by
+_CLIF_B, _CLIF_G, _CLIF_R = 0.114, 0.587, 0.299
 
 
-def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
-    """uint8 BGR (..., H, W, 3) -> uint8 gray (..., H, W), bit-exact with
-    ``cv2.cvtColor(BGR2GRAY)``."""
-    if img.ndim < 3 or img.shape[-1] != 3:
-        raise ValueError(
-            f"bgr_to_gray expects (..., H, W, 3) BGR input, got "
-            f"{tuple(img.shape)}")
-    b = img[..., 0].to(torch.int32)
-    g = img[..., 1].to(torch.int32)
-    r = img[..., 2].to(torch.int32)
-    y = (r * _CV_R + g * _CV_G + b * _CV_B
-         + (1 << (_CV_SHIFT - 1))) >> _CV_SHIFT
-    return y.to(torch.uint8)
+def invert(img: torch.Tensor) -> torch.Tensor:
+    """255 - pixel, in the input's dtype (the reference's ``invert``
+    kernel, clif.cl:123-137; JAX ``ops/integral.py:44-49``)."""
+    return 255 - img
 
 
-def bgra_to_gray(img: torch.Tensor) -> torch.Tensor:
-    """uint8 BGRA (..., H, W, 4) -> uint8 gray; alpha ignored."""
-    if img.ndim < 3 or img.shape[-1] != 4:
-        raise ValueError(
-            f"bgra_to_gray expects (..., H, W, 4) BGRA input, got "
-            f"{tuple(img.shape)}")
-    return bgr_to_gray(img[..., :3])
+def _channels(img: torch.Tensor, what: str, n: int):
+    if img.ndim < 3 or img.shape[-1] != n:
+        raise ValueError(f"{what} expects (..., H, W, {n}) input, got "
+                         f"{tuple(img.shape)}")
+    return img[..., 0], img[..., 1], img[..., 2]
+
+
+def _truncate(y: torch.Tensor) -> torch.Tensor:
+    """C-style truncation toward zero, then the clamp to [0, 255]."""
+    return y.to(torch.int32).clamp(0, 255).to(torch.uint8)
+
+
+def bgr_to_gray(img: torch.Tensor, mode: str = "cv") -> torch.Tensor:
+    """uint8 BGR (..., H, W, 3) -> uint8 gray (..., H, W).
+
+    ``mode="cv"``: ``cv2.cvtColor(BGR2GRAY)``'s fixed-point rounding,
+    bit-exact.  ``mode="clif"``: the reference GPU kernel's float32
+    multiply-accumulate, then truncation and clamp (clif.cl:4-18),
+    bit-equal to JAX's ``bgr_to_gray(mode="clif")``: XLA:CPU rounds each
+    product and each sum there, ``(0.114 b + 0.587 g) + 0.299 r``."""
+    b, g, r = _channels(img, "bgr_to_gray", 3)
+    if mode == "cv":
+        b, g, r = (c.to(torch.int32) for c in (b, g, r))
+        y = (r * _CV_R + g * _CV_G + b * _CV_B
+             + (1 << (_CV_SHIFT - 1))) >> _CV_SHIFT
+        return y.to(torch.uint8)
+    if mode == "clif":
+        f = torch.float32
+        y = (b.to(f) * _f32(_CLIF_B, img) + g.to(f) * _f32(_CLIF_G, img)) \
+            + r.to(f) * _f32(_CLIF_R, img)
+        return _truncate(y)
+    raise ValueError(f"unknown grayscale mode {mode!r}")
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def bgr_to_gray_per_row(img: torch.Tensor, mode: str = "clif"
+                        ) -> torch.Tensor:
+    """The reference's row-parallel ``bgrToGrayscalePerRow``
+    (clif.cl:35-74), bit-equal to JAX's ``bgr_to_gray_per_row``.  JAX maps
+    ``bgr_to_gray`` over the rows, and XLA:CPU contracts that loop body's
+    clif arithmetic into two fmas, ``fma(0.299, r, fma(0.114, b, 0.587
+    g))`` (each rounded once; measured over every BGR triple), so the
+    clif mode here computes that, each fma exact in float64 and rounded to
+    float32 once.  ``mode="cv"`` is ``bgr_to_gray``'s."""
+    b, g, r = _channels(img, "bgr_to_gray_per_row", 3)
+    if mode != "clif":
+        return bgr_to_gray(img, mode)
+    d = torch.float64
+    inner = (b.to(d) * float(np.float32(_CLIF_B))
+             + (g.to(torch.float32) * _f32(_CLIF_G, img)).to(d)
+             ).to(torch.float32)
+    y = (r.to(d) * float(np.float32(_CLIF_R)) + inner.to(d)) \
+        .to(torch.float32)
+    return _truncate(y)
+
+
+def bgra_to_gray(img: torch.Tensor, mode: str = "cv") -> torch.Tensor:
+    """uint8 BGRA (..., H, W, 4) -> uint8 gray; alpha ignored: the BGR
+    conversion of the first three channels (``cvtColor(BGRA2GRAY)``)."""
+    _channels(img, "bgra_to_gray", 4)
+    return bgr_to_gray(img[..., :3], mode)
 
 
 class IntegralImages(NamedTuple):

@@ -16,6 +16,8 @@ import pytest
 from clfacedetection_tpu.detect import detector as jdetector
 from clfacedetection_tpu.detect.grouping import \
     group_rectangles as j_group_rectangles
+from clfacedetection_tpu.detect.grouping import \
+    group_rectangles_levels as j_group_rectangles_levels
 from clfacedetection_tpu.detect.pyramid import PyramidPlan as JPlan
 from clfacedetection_tpu.models import compile as jcompile
 from clfacedetection_tpu.models import load_cascade as j_load_cascade
@@ -26,6 +28,8 @@ from clfacedetection_tpu.utils import synth_scene as j_synth_scene
 from clfacedetection_torch.detect import detector as tdetector
 from clfacedetection_torch.detect.grouping import \
     group_rectangles as t_group_rectangles
+from clfacedetection_torch.detect.grouping import \
+    group_rectangles_levels as t_group_rectangles_levels
 from clfacedetection_torch.detect.pyramid import PyramidPlan as TPlan
 from clfacedetection_torch.models import ARRAY_FIELDS, spec_from_arrays
 from clfacedetection_torch.models import compile as tcompile
@@ -129,6 +133,30 @@ def test_group_rectangles_equal(seed):
         tb, tn = t_group_rectangles(boxes, thr, eps=0.2)
         np.testing.assert_array_equal(tb, jb)
         np.testing.assert_array_equal(tn, jn)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_group_rectangles_levels_equal(seed):
+    """The ROC grouping: random clusters with levels that tie within a
+    class (the larger weight wins), empty levels, thresholds 0-5."""
+    rng = np.random.default_rng(seed)
+    boxes = []
+    for cx, cy in rng.integers(0, 600, (10, 2)):
+        size = int(rng.integers(20, 120))
+        for _ in range(int(rng.integers(1, 25))):
+            j = rng.integers(-4, 5, 3)
+            boxes.append((cx + j[0], cy + j[1], size + j[2], size + j[2]))
+    boxes = np.asarray(boxes, np.int32)
+    levels = rng.integers(16, 23, len(boxes)).astype(np.int32)
+    weights = np.round(rng.normal(0.0, 2.0, len(boxes)), 1)
+    for lv, wt in ((levels, weights), (np.zeros(0, np.int32),
+                                       np.zeros(0, np.float64))):
+        for thr in (0, 1, 3, 5, 18):
+            want = j_group_rectangles_levels(boxes, lv, wt, thr, eps=0.2)
+            got = t_group_rectangles_levels(boxes, lv, wt, thr, eps=0.2)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("kind", ["face", "scene"])

@@ -239,10 +239,20 @@ def test_block_strategy_equals_per_stage(face):
         flags=japi.CLOD_BLOCK_IMPLEMENTATION)
     assert [tuple(vars(r).values()) for r in tr] == \
         [tuple(vars(r).values()) for r in jr]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.PyramidDetector(spec, SHAPE, strategy="direct", device="cpu")
-    with pytest.raises(NotImplementedError, match="direct"):
-        ct.detect_objects(face, spec, flags=0, device="cpu")
+    # the direct strategy runs, and detect_objects with neither strategy
+    # bit takes it (front 2), as JAX's does
+    drc = ct.PyramidDetector(spec, SHAPE, max_stages=10, strategy="direct",
+                             device="cpu")
+    assert not drc.use_tail2
+    dc, _ = drc.candidates(face)
+    np.testing.assert_array_equal(dc, pc)
+    tr0 = ct.detect_objects(face, spec, min_window_size=(20, 20), flags=0,
+                            device="cpu")
+    jr0 = japi.detect_objects(face, j_load_cascade(
+        "haarcascade_frontalface_alt"), min_window_size=(20, 20), flags=0)
+    assert len(jr0) > 0
+    assert [tuple(vars(r).values()) for r in tr0] == \
+        [tuple(vars(r).values()) for r in jr0]
 
 
 @pytest.mark.parametrize("name", ZOO)
@@ -278,7 +288,41 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         tpyramid.default_device()
 
 
-def test_float64_refused_on_cuda_device():
-    with pytest.raises(NotImplementedError):
-        ct.PyramidDetector(ct.load_cascade("haarcascade_frontalface_alt"),
-                           SHAPE, dtype=torch.float64, device="cuda")
+def test_float64_refused_on_cuda_device(face, monkeypatch):
+    """float64 is no longer refused on a CUDA device: the detector takes
+    the plain versions in float64 wherever it runs (the kernels are
+    float32), and float32 takes the kernels' wrappers.  Shown with every
+    wrapper replaced by one that fails, which float64 never calls."""
+    spec = ct.load_cascade("haarcascade_frontalface_alt2")
+    f64 = ct.PyramidDetector(spec, SHAPE, max_stages=6, dtype=torch.float64,
+                             device="cpu")
+    want, _ = f64.candidates(face)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was called")
+
+    for fn in ("haar_front", "compact", "haar_tail", "haar_tail2",
+               "tail_rows"):
+        monkeypatch.setattr(tpyramid, fn, refuse)
+    got, _ = f64.candidates(face)
+    assert len(want) > 0
+    np.testing.assert_array_equal(got, want)
+    f32 = ct.PyramidDetector(spec, SHAPE, max_stages=6, device="cpu")
+    with pytest.raises(AssertionError, match="wrapper"):
+        f32.candidates(face)
+
+
+def test_canny_flag_ignored_in_scale_image_mode(face):
+    """CV_HAAR_DO_CANNY_PRUNING acts only in scale-cascade mode, so the
+    scale-image detector gives JAX's boxes with the flag set."""
+    flags = ct.api.CV_HAAR_DO_CANNY_PRUNING
+    name = "haarcascade_frontalface_alt"
+    tb = ct.CascadeClassifier(name, device="cpu").detect_multi_scale(
+        face, min_neighbors=2, min_size=(20, 20), flags=flags)
+    jb = japi.CascadeClassifier(name).detect_multi_scale(
+        face, min_neighbors=2, min_size=(20, 20), flags=flags)
+    assert len(jb) > 0
+    np.testing.assert_array_equal(tb, jb)
+    with pytest.raises(NotImplementedError, match="biggest"):
+        ct.CascadeClassifier(name, device="cpu").detect_multi_scale(
+            face, flags=ct.api.CV_HAAR_FIND_BIGGEST_OBJECT)

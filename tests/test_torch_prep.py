@@ -90,3 +90,45 @@ def test_tilted_integral_bit_equal(rng, shape):
     ii = tintegral.integral_images(torch.from_numpy(img), 5, with_tilted=True)
     np.testing.assert_array_equal(ii.tilted[:, :-5, :-5].numpy(), want)
     assert not ii.tilted[:, -5:].any() and not ii.tilted[:, :, -5:].any()
+
+
+def _every_bgr_triple():
+    """Every (b, g, r) byte triple once, as a (4096, 4096, 3) image."""
+    b, g, r = np.meshgrid(np.arange(256), np.arange(256), np.arange(256),
+                          indexing="ij")
+    return np.stack([b, g, r], -1).astype(np.uint8).reshape(4096, 4096, 3)
+
+
+@pytest.mark.parametrize("fn,mode", [("bgr_to_gray", "clif"),
+                                     ("bgr_to_gray_per_row", "clif"),
+                                     ("bgr_to_gray_per_row", "cv"),
+                                     ("bgra_to_gray", "clif")])
+def test_gray_modes_bit_equal(fn, mode):
+    """The clif modes over every BGR triple (XLA:CPU rounds each product
+    and sum of ``bgr_to_gray``'s clif mode, and contracts the per-row
+    variant's loop body into two fmas: the port follows each), the cv
+    mode of the per-row variant, and a batch of frames."""
+    img = _every_bgr_triple()
+    if fn == "bgra_to_gray":
+        img = np.concatenate([img, img[..., :1]], axis=-1)
+    want = np.asarray(getattr(jintegral, fn)(jnp.asarray(img), mode=mode))
+    got = getattr(tintegral, fn)(torch.from_numpy(img), mode=mode)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    batch = img[:64].reshape(2, 32, img.shape[1], img.shape[2])
+    np.testing.assert_array_equal(
+        getattr(tintegral, fn)(torch.from_numpy(batch), mode=mode).numpy(),
+        np.asarray(getattr(jintegral, fn)(jnp.asarray(batch), mode=mode)))
+
+
+def test_invert_and_gray_mode_checks(rng):
+    img = rng.integers(0, 256, (2, 17, 23, 3), dtype=np.uint8)
+    got = tintegral.invert(torch.from_numpy(img))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jintegral.invert(jnp.asarray(img))))
+    for fn in (tintegral.bgr_to_gray, tintegral.bgr_to_gray_per_row):
+        with pytest.raises(ValueError, match="mode"):
+            fn(torch.from_numpy(img), mode="nope")
+        with pytest.raises(ValueError):
+            fn(torch.from_numpy(img[..., :2]))

@@ -19,7 +19,13 @@ table against the JAX package.
 * Decisions: ``tail_rows`` on those values against the JAX XLA tail
   ``_tail_device_xla`` built with ``output_levels=True``, at tail2's
   bounds (alive-set Jaccard >= 0.995, >= 99.5% of survivors with the same
-  exit stage); the stage tree's accept only.
+  exit stage); the stage tree's accept only.  With padding between the
+  live slots and a batch of two unequal frames, the exit stages and stage
+  sums too: the stage sums within 1e-4 of JAX's where the exit stages
+  agree (JAX sums votes of matrix-product node values in ``jnp.sum``
+  order; measured at most 4.6e-5 apart).
+* The decisions kernel's table (``CascadeTable.rows``, the path buffer)
+  walked the kernel's way in numpy gives ``tail_rows_plain``'s bits.
 """
 
 import functools
@@ -38,10 +44,11 @@ from clfacedetection_tpu.utils import synth_scene
 
 from clfacedetection_torch import kernels
 from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
-from clfacedetection_torch.detect.pyramid import tail_rows
 from clfacedetection_torch.models import load_cascade as t_load_cascade
 from clfacedetection_torch.ops import cascade_table as ctab
 from clfacedetection_torch.ops import haar_tail as ttail
+from clfacedetection_torch.ops import tail_rows as trows
+from clfacedetection_torch.ops.tail_rows import tail_rows, tail_rows_plain
 
 # The suite runs in several worker processes at once; one torch thread
 # each keeps them from oversubscribing the cores.
@@ -203,11 +210,12 @@ def test_tail_values_and_decisions_against_jax(name, max_stages, front):
     jv, mag = jv[:, :nn], mag[:, :nn]        # JAX keeps truncated stages
     assert (np.abs(tv - jv) <= 1e-4 * np.abs(jv) + 2.0 ** -20 * mag).all()
 
-    valid = (surv_t >= 0) & (surv_t < td.hv * td.wv)
     svnf = torch.from_numpy(np.asarray(f["vnf"]).reshape(-1)[
         np.where(surv < td.hv * td.wv, surv, 0)])[None]
-    rows = tail_rows(vals[None], svnf, valid, td.table, td.front_k,
-                     td.paths if td.is_tree else None)[0]
+    launches = trows.tail_rows.launches
+    rows = tail_rows(vals[None], svnf, surv_t, td.hv * td.wv, td.table,
+                     td.front_k, td.paths if td.is_tree else None)[0]
+    assert trows.tail_rows.launches == launches        # CPU: plain twin
     alive = rows[:n, 1].numpy() > 0
     ok = np.asarray(jt["ok"])[:n]
     union = (alive | ok).sum()
@@ -239,7 +247,6 @@ def test_tail_rejects_bad_inputs():
 def test_chunking_keeps_every_bit(monkeypatch):
     """Node values chunked over nodes and votes chunked over stage groups
     give the same bits as one chunk each."""
-    from clfacedetection_torch.detect import pyramid as tpyramid
     name = "haarcascade_eye_tree_eyeglasses"
     frame = synth_scene(SHAPE, faces=((60, 80, 40.0),), seed=9)
     td = TDet(t_load_cascade(name), SHAPE, front_stages=3, max_stages=8,
@@ -255,12 +262,12 @@ def test_chunking_keeps_every_bit(monkeypatch):
     def run():
         vals = ttail.tail_values_plain(ii.sum, ii.tilted, surv, td.hv,
                                        td.wv, td.table)
-        return vals, tail_rows(vals.clone(), svnf, valid, td.table,
+        return vals, tail_rows(vals.clone(), svnf, surv, n, td.table,
                                td.front_k)
 
     v1, r1 = run()
     monkeypatch.setattr(ttail, "_CHUNK_ELEMS", 300 * 12 * 5)
-    monkeypatch.setattr(tpyramid, "_VOTE_CHUNK_ELEMS", 300 * 3 * 40)
+    monkeypatch.setattr(trows, "_VOTE_CHUNK_ELEMS", 300 * 3 * 40)
     v2, r2 = run()
     assert 0 < r1[0, :, 1].sum() < 280 and valid.sum() == 280
     np.testing.assert_array_equal(v1.numpy().view(np.int32),
@@ -367,6 +374,208 @@ def test_tail_values_with_padding_interleaved_and_unequal_batch():
         jv, mag = _jax_node_values(jd, outs[b]["planes"], sy, sx)
         jv, mag = jv[:, :nn], mag[:, :nn]
         assert (np.abs(tv - jv) <= 1e-4 * np.abs(jv) + 2.0 ** -20 * mag).all()
+
+
+ROWS_CASES = [                        # (cascade, max_stages, front)
+    ("haarcascade_mcs_nose", None, 3),             # stumps, tilted
+    ("haarcascade_frontalface_alt2", None, 3),     # CART, T=2
+    ("haarcascade_eye_tree_eyeglasses", None, 3),  # CART, T=3, tilted
+    ("haarcascade_frontalface_alt_tree", 16, 5),   # stage tree
+]
+
+
+def _interleaved(lists, n_flat, extra=7):
+    """[len(lists), cap] slots: each frame's live slots in order with a
+    pad slot after every third, then padding to a common cap."""
+    rows = []
+    for live in lists:
+        sl = []
+        for i, v in enumerate(live):
+            sl.append(v)
+            if i % 3 == 2:
+                sl.append(n_flat)
+        rows.append(sl)
+    cap = max(map(len, rows)) + extra
+    surv = np.full((len(rows), cap), n_flat, np.int32)
+    for b, sl in enumerate(rows):
+        surv[b, :len(sl)] = sl
+    return surv
+
+
+@pytest.mark.parametrize("name,max_stages,front", ROWS_CASES)
+def test_tail_rows_with_padding_interleaved_and_unequal_batch(
+        name, max_stages, front):
+    """``tail_rows_plain`` over B = 2 frames with unequal survivor counts
+    and padding between the live slots: each live slot's alive flag, exit
+    stage and stage sum against JAX's XLA tail on that frame, pad slots
+    (0, 0, S, 0), and each frame's rows equal to a batch of one."""
+    jd, front_fn, compact_fn, tail_fn = _jax_det(name, max_stages, front)
+    td = TDet(t_load_cascade(name), SHAPE, front_stages=jd.front_k,
+              max_stages=max_stages, device="cpu")
+    S, n_flat = td.n_stages, td.hv * td.wv
+    frames = [synth_scene(SHAPE, faces=((60, 80, 40.0),), seed=9),
+              synth_scene(SHAPE, faces=((50, 60, 30.0),), seed=4)]
+    lists, jts, vnfs = [], [], []
+    for fr in frames:
+        f = front_fn(jnp.asarray(fr))
+        surv, n_surv = compact_fn(f["front"])
+        lists.append(np.asarray(surv)[:int(n_surv)])
+        jts.append(tail_fn(f["planes"], f["vnf"], surv, n_surv))
+        vnfs.append(np.asarray(f["vnf"]).reshape(-1))
+    assert len(lists[0]) != len(lists[1]) and min(map(len, lists)) > 0
+    surv = _interleaved(lists, n_flat)
+    ii = [td._prep_planes(torch.from_numpy(fr)[None]) for fr in frames]
+    s = torch.cat([i.sum for i in ii])
+    t = torch.cat([i.tilted for i in ii]) if td.table.has_tilted else None
+    st = torch.from_numpy(surv)
+    vals = ttail.tail_values_plain(s, t, st, td.hv, td.wv, td.table)
+    svnf = torch.from_numpy(np.stack([
+        v[np.where(sv < n_flat, sv, 0)] for v, sv in zip(vnfs, surv)]))
+    paths = td.paths if td.is_tree else None
+    rows = tail_rows_plain(vals, svnf, st, n_flat, td.table, td.front_k,
+                           paths)
+    assert rows.shape == (2, surv.shape[1], 4)
+    for b in range(2):
+        valid = surv[b] < n_flat
+        np.testing.assert_array_equal(
+            rows[b][~valid].numpy(),
+            np.tile(np.float32([0, 0, S, 0]), ((~valid).sum(), 1)))
+        one = tail_rows_plain(vals[b:b + 1].clone(), svnf[b:b + 1],
+                              st[b:b + 1], n_flat, td.table, td.front_k,
+                              paths)[0]
+        np.testing.assert_array_equal(one.numpy().view(np.int32),
+                                      rows[b].numpy().view(np.int32))
+        r = rows[b][valid].numpy()
+        n = len(lists[b])
+        jt = jts[b]
+        alive, ok = r[:, 1] > 0, np.asarray(jt["ok"])[:n]
+        union = (alive | ok).sum()
+        assert union == 0 or (alive & ok).sum() / union >= 0.995
+        same = r[:, 2].astype(np.int32) == np.asarray(jt["level"])[:n]
+        assert same.mean() >= 0.995, f"{(~same).sum()} of {n} levels differ"
+        near = np.abs(r[:, 3] - np.asarray(jt["weight"])[:n]) <= 1e-4
+        assert near[same].mean() >= 0.995
+        np.testing.assert_array_equal(r[:, 0], svnf[b][valid].numpy())
+
+
+def _rows_walk(table, values, svnf, surv, n, front_k, paths):
+    """The decisions kernel's algorithm in numpy, from its own table
+    (``CascadeTable.rows``, the path buffer): a classifier's record walked
+    for every slot, stage sums in classifier order, a sequential cascade's
+    slots dropped at their first failing stage."""
+    S, T = table.n_stages, table.T
+    stages = table.rows[:4 * S].reshape(S, 4)
+    rec = table.rows[4 * S:].reshape(-1, ctab.ROW_WORDS)
+    assert len(rec) == table.n_clf and not rec[:, 13:].any()
+    thr, left, right = rec[:, 0:3].view(np.float32), rec[:, 3:6], rec[:, 6:9]
+    alpha = rec[:, 9:13].view(np.float32)
+    B, cap, _ = values.shape
+    ok = (surv >= 0) & (surv < n)
+    out = np.tile(np.float32([0, 0, S, 0]), (B, cap, 1))
+    live = ok.copy()
+    sums = np.zeros((B, cap, S), np.float32)
+    passed = np.zeros((B, cap, S), bool)
+    for s in range(0 if paths is not None else min(front_k, S), S):
+        c0, cnt, sthr = stages[s, 0], stages[s, 1], \
+            stages[s, 2:3].view(np.float32)[0]
+        ssum = np.zeros((B, cap), np.float32)
+        for c in range(c0, c0 + cnt):
+            v = values[:, :, c * T:(c + 1) * T]
+            node = np.zeros((B, cap), np.int64)
+            vote = np.zeros((B, cap), np.float32)
+            done = np.zeros((B, cap), bool)
+            for _ in range(T):
+                nv = np.take_along_axis(v, node[..., None], 2)[..., 0]
+                go = nv < thr[c][node] * svnf
+                nxt = np.where(go, left[c][node], right[c][node])
+                leaf = (nxt <= 0) & ~done
+                vote = np.where(leaf, alpha[c][np.minimum(-nxt, T)], vote)
+                done |= nxt <= 0
+                node = np.clip(nxt, 0, T - 1)
+            ssum = ssum + vote
+        sums[..., s], passed[..., s] = ssum, ssum >= sthr
+        if paths is None:
+            stop = live & (~passed[..., s] | (s == S - 1))
+            out[stop] = np.stack([svnf, passed[..., s].astype(np.float32),
+                                  np.where(passed[..., s], S, s),
+                                  ssum], -1)[stop]
+            live &= passed[..., s]
+    if paths is None:
+        if front_k >= S:
+            out[ok] = np.stack([svnf, np.ones_like(svnf),
+                                np.full_like(svnf, S),
+                                np.zeros_like(svnf)], -1)[ok]
+        return out
+    buf = trows._path_buffer(table, paths, "cpu").numpy()
+    pb = buf[:4 * len(paths)].reshape(-1, 4).view(np.uint32)
+    of_stage = buf[4 * len(paths):]
+    assert len(of_stage) == S
+    assert (of_stage >= 0).sum() == len({p[-1] for p in paths})
+    bits = (1 << np.arange(S, dtype=np.uint64)).astype(np.uint64)
+    mask = np.bitwise_or.reduce(np.where(passed, bits, np.uint64(0)), -1)
+    for b in range(B):
+        for i in np.nonzero(ok[b])[0]:
+            first = next((p for p, r in enumerate(pb) if not
+                          ((int(r[0]) | int(r[1]) << 32) & ~int(mask[b, i]))),
+                         -1)
+            leaf = int(np.nonzero(of_stage == pb[max(first, 0), 2])[0][0])
+            out[b, i] = (svnf[b, i], float(first >= 0),
+                         S if first >= 0 else 0, sums[b, i, leaf])
+    return out
+
+
+@pytest.mark.parametrize("name,max_stages,front", ROWS_CASES + [
+    ("haarcascade_frontalface_alt", 6, 6),          # front_k = S
+])
+def test_rows_view_walk_equals_plain(name, max_stages, front):
+    """The decisions kernel's table and algorithm (``_rows_walk``) give
+    ``tail_rows_plain``'s bits on a scene's front survivors and random
+    windows, with padding between live slots, B = 2."""
+    from clfacedetection_torch.ops.compact_kernel import compact_plain
+    from clfacedetection_torch.ops.haar_front import front_plain
+    td = TDet(t_load_cascade(name), SHAPE, front_stages=front,
+              max_stages=max_stages, device="cpu")
+    tab = td.table
+    n, S = td.hv * td.wv, td.n_stages
+    frame = synth_scene(SHAPE, faces=((60, 80, 40.0),), seed=9)
+    ii = td._prep_planes(torch.from_numpy(np.stack([frame, frame[::-1]])
+                                          .copy()))
+    mask, vnf = front_plain(ii.sum, ii.sq_hi, ii.sq_lo, td._visit, tab,
+                            td.front_k, tilted=ii.tilted)
+    surv, cnt = compact_plain(mask.reshape(2, -1), 160)
+    surv = surv.numpy()
+    rng = np.random.default_rng(11)
+    surv[:, ::5] = n
+    surv[:, 120:140] = rng.choice(n, (2, 20))
+    surv[1, -15:] = -1
+    st = torch.from_numpy(surv)
+    ok = (st >= 0) & (st < n)
+    svnf = vnf.reshape(2, -1).gather(1, torch.where(ok, st, 0).long())
+    values = ttail.tail_values_plain(ii.sum, ii.tilted, st, td.hv, td.wv,
+                                     tab)
+    paths = td.paths if td.is_tree else None
+    want = tail_rows_plain(values, svnf, st, n, tab, td.front_k,
+                           paths).numpy()
+    got = _rows_walk(tab, values.numpy(), svnf.numpy(), surv, n,
+                     td.front_k, paths)
+    assert len(np.unique(want[..., 2][ok.numpy()])) > 1 or td.front_k == S
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_tail_rows_rejects_bad_inputs():
+    td = TDet(t_load_cascade("haarcascade_frontalface_alt2"), (60, 80),
+              max_stages=4, device="cpu")
+    nn = td.table.n_clf * td.table.T
+    vals = torch.zeros((1, 8, nn))
+    svnf = torch.ones((1, 8))
+    idx = torch.zeros((1, 8), dtype=torch.int32)
+    n = td.hv * td.wv
+    with pytest.raises(ValueError, match="nodes"):
+        tail_rows(vals[..., 1:], svnf, idx, n, td.table, td.front_k)
+    with pytest.raises(ValueError, match="int32"):
+        tail_rows(vals, svnf, idx.long(), n, td.table, td.front_k)
+    with pytest.raises(ValueError):
+        tail_rows(vals, svnf[:, 1:], idx, n, td.table, td.front_k)
 
 
 @pytest.mark.parametrize("entry", sorted(kernels._SIGNATURES))
