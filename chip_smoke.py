@@ -34,6 +34,17 @@ points and times kernels and paths with CUDA events:
 * the JAX bench's scene: ``photo_scene`` at 1080p through frontalface_alt's
   ``detect``, equal to the plain path, its front survivors printed beside
   the JAX's 18,388;
+* scale-cascade mode (``ScaleCascadeDetector``, plain PyTorch over the
+  scales; its compactions run the compaction kernel): the reference demo's
+  configuration (frontalface_default, 640x480, scaleFactor 1.1, minSize
+  40x40) through ``CascadeClassifier(mode="scale_cascade")``, the card
+  against the CPU in float32 (PARITY bounds, minNeighbors 3 and 0) and in
+  float64 (box for box), timed at front 3 and at front ``n_stages``; CART,
+  tilted, stage-tree and Canny-pruning cascades at 240x320 against the CPU
+  (``canny`` on the card bit-equal to ``canny_np``); find-biggest-object's
+  search on the card in float64 against the golden path, with and without
+  rough search; frontalface_alt at 1080p timed, float32 against the
+  card's float64; its launches a frame from the profiler at the end;
 * the chain microbenchmark (``mb_vpu3``): the chain kernel bit-equal to its
   plain version at float32 [2272, 384] -> [2272, 1280] for its five bodies
   at 4 and 16 trips, then the tool ``clfacedetection_torch.tools.mb_vpu3``
@@ -120,6 +131,24 @@ V1_SERVED = (
     "haarcascade_righteye_2splits", "haarcascade_upperbody")
 SWEEP_KNOBS = dict(scale_factor=1.1, min_size=(40, 40), front_stages=10,
                    cap=4096)
+# the reference demo's configuration (main.cpp:145 with flags=0, SURVEY.md
+# C11): scale-cascade mode, frontalface_default (25 stages, 2,913 stumps,
+# 24x24 window), 640x480, scaleFactor 1.1, minSize 40x40
+DEMO_CASCADE = "haarcascade_frontalface_default"
+DEMO_KNOBS = dict(scale_factor=1.1, min_size=(40, 40))
+# every scale-cascade path at 240x320, card against CPU: CART, tilted, stage
+# tree (its depth cut: a stage tree's tail takes every stage of every
+# survivor, which the CPU reference pays for) and Canny pruning; each on a
+# frame where it finds candidates at minSize 40x40 (synth_scene's faces are
+# 10-31 px there, photo_scene's 60 and 100)
+SC_SHAPE = (240, 320)
+SC_PATHS = (("haarcascade_frontalface_alt2", None, False, "photo"),
+            ("haarcascade_mcs_nose", None, False, "synth"),
+            ("haarcascade_frontalface_alt_tree", 12, False, "synth"),
+            ("haarcascade_frontalface_default", None, True, "photo"))
+# find-biggest-object against the golden path, a per-window Python loop:
+# depth cut as in the tests
+FBO_STAGES = 6
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and 32-bit operations/s
 # outside the tensor cores (the kernels' integer and float32 arithmetic;
 # the data sheet counts an FMA as two, so adds, multiplies, compares and
@@ -1062,6 +1091,224 @@ def check_sass(sass: dict) -> None:
              f"the source {loads} and at least {floats}")
 
 
+def best_ms(det, gray, reps: int = 3) -> float:
+    """Host milliseconds of the best of ``reps`` ``detect`` calls (each
+    ends in its readback), after the calls the caller warmed it with."""
+    best = None
+    for _ in range(reps):
+        t = time.perf_counter()
+        det.detect(gray, MIN_NEIGHBORS)
+        ms = (time.perf_counter() - t) * 1e3
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def check_scale_cascade(ct, counters) -> dict:
+    """Scale-cascade mode (``ScaleCascadeDetector``, plain PyTorch over the
+    scales, its compactions through the compaction kernel):
+
+    * the demo configuration through ``CascadeClassifier(mode=
+      "scale_cascade")`` with every count from 0 (the compaction launched,
+      no other kernel), the card in float32 against the CPU in float32
+      within the PARITY bounds at minNeighbors 3 and 0, and in float64
+      box for box; ms a frame, best of 3, at front 3 and at front
+      ``n_stages``;
+    * every path at 240x320 through the classifier, the card against the
+      CPU in float32 within the PARITY bounds: frontalface_alt2 (CART),
+      mcs_nose (tilted), frontalface_alt_tree (stage tree) and
+      frontalface_default with ``CV_HAAR_DO_CANNY_PRUNING``, whose
+      ``canny`` on the card is bit-equal to ``canny_np``;
+    * find-biggest-object at 240x320: the card's search in float64
+      against the CPU's golden path, with and without
+      ``CV_HAAR_DO_ROUGH_SEARCH``, and once through the classifier;
+    * frontalface_alt at 1080p: ms a frame and candidates, float32 within
+      the PARITY bounds of the card's own float64.
+
+    Returns the record and the demo detector (for the profiler's launch
+    count at the end of the run)."""
+    import numpy as np
+    import torch
+    from clfacedetection_torch.detect.detector import DetectionResult
+    from clfacedetection_torch.detect.reference_impl import \
+        detect_multi_scale_reference
+    from clfacedetection_torch.ops.canny import canny, canny_np
+    from clfacedetection_torch.utils import photo_scene
+    t0 = time.perf_counter()
+    api = ct.api
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}
+
+    def only_compact(what, launches):
+        need(launches["compact"] > 0
+             and not any(v for k, v in launches.items() if k != "compact"),
+             f"{what}: the compaction kernel alone should run: {launches}")
+
+    def within_parity(what, a, b):
+        need(len(a.candidates) > 0, f"{what}: no candidates")
+        p = parity(a, b)
+        need(p["jaccard"] >= 0.995 and p["boxes_matched"],
+             f"{what}: outside the PARITY bounds: {p}")
+        return p
+
+    def raw(res):
+        """minNeighbors 0 of a result: its candidates are the boxes."""
+        return DetectionResult(res.candidates, np.ones(len(res.candidates),
+                                                       np.int32),
+                               res.candidates, res.survivor_overflow)
+
+    out = {}
+    spec = ct.load_cascade(DEMO_CASCADE)
+    demo = frame(5, VGA)
+    clf = ct.CascadeClassifier(spec, device="cuda", mode="scale_cascade")
+    zero()
+    r3 = clf.detect_multi_scale_full(demo, min_neighbors=MIN_NEIGHBORS,
+                                     **DEMO_KNOBS)
+    launches = counts()
+    only_compact("demo", launches)
+    (det,) = clf._detectors.values()
+    need(not r3.survivor_overflow and len(r3.candidates) > 0,
+         f"demo: {len(r3.candidates)} candidates, overflow "
+         f"{r3.survivor_overflow}")
+    t1 = time.perf_counter()
+    c3 = ct.ScaleCascadeDetector(spec, VGA, device="cpu", cap=det.cap,
+                                 **DEMO_KNOBS).detect(demo, MIN_NEIGHBORS)
+    cpu_s = time.perf_counter() - t1
+    demo_rec = dict(
+        scales=det.n_scales, lattice=f"{det.max_y}x{det.max_x}",
+        cap=det.cap, front_k=det.front_k, candidates=len(r3.candidates),
+        boxes=r3.boxes.tolist(), launches=launches,
+        parity_3=within_parity("demo f32", r3, c3),
+        parity_0=within_parity("demo f32, minNeighbors 0", raw(r3), raw(c3)),
+        equal_to_cpu=bool(np.array_equal(r3.candidates, c3.candidates)),
+        cpu_seconds=cpu_s)
+    g64 = ct.ScaleCascadeDetector(spec, VGA, device="cuda",
+                                  dtype=torch.float64, **DEMO_KNOBS)
+    zero()
+    r64 = g64.detect(demo, MIN_NEIGHBORS)
+    demo_rec["f64_launches"] = counts()
+    p64 = ct.ScaleCascadeDetector(spec, VGA, device="cpu",
+                                  dtype=torch.float64, cap=g64.cap,
+                                  **DEMO_KNOBS).detect(demo, MIN_NEIGHBORS)
+    need(np.array_equal(r64.candidates, p64.candidates)
+         and np.array_equal(r64.boxes, p64.boxes),
+         "demo f64: the card's boxes differ from the CPU's")
+    demo_rec["f64_candidates"] = len(r64.candidates)
+    demo_rec["f64_parity_to_f32"] = parity(r3, r64)
+    del g64
+    demo_rec["ms_front_3"] = best_ms(det, demo)
+    deep = ct.ScaleCascadeDetector(spec, VGA, device="cuda",
+                                   front_stages=spec.n_stages, **DEMO_KNOBS)
+    t1 = time.perf_counter()
+    rd = deep.detect(demo, MIN_NEIGHBORS)
+    demo_rec["front_n_first_seconds"] = time.perf_counter() - t1
+    demo_rec["parity_front_n"] = within_parity("demo front n_stages", rd, r3)
+    demo_rec["ms_front_n"] = best_ms(deep, demo)
+    demo_rec["front_n"] = deep.front_k
+    del deep
+    out["demo"] = demo_rec
+    say("scale_cascade", case="demo", shape=f"{VGA[0]}x{VGA[1]}",
+        cascade=DEMO_CASCADE, **{k: json.dumps(v) if isinstance(
+            v, (dict, list)) else v for k, v in demo_rec.items()})
+
+    # every path at 240x320 through the classifier, card against CPU
+    ph = photo_scene(SC_SHAPE, face_sizes=(60, 100))
+    scenes = {"synth": frame(5, SC_SHAPE), "photo": ph}
+    paths = {}
+    for cname, depth, canny_flag, scene in SC_PATHS:
+        small = scenes[scene]
+        flags = api.CV_HAAR_DO_CANNY_PRUNING if canny_flag else 0
+        knobs = dict(DEMO_KNOBS, flags=flags, min_neighbors=MIN_NEIGHBORS,
+                     max_stages=depth)
+        cc = ct.CascadeClassifier(cname, device="cuda", mode="scale_cascade")
+        zero()
+        rc = cc.detect_multi_scale_full(small, **knobs)
+        pl = counts()
+        only_compact(cname, pl)
+        (cd,) = cc._detectors.values()
+        need(cd.do_canny_pruning == canny_flag,
+             f"{cname}: the Canny flag was not routed")
+        need(len(rc.candidates) > 0, f"{cname}: no candidates")
+        pc = ct.CascadeClassifier(cname, device="cpu", mode="scale_cascade") \
+            .detect_multi_scale_full(small, cap=cd.cap, **knobs)
+        key = cname + (" canny" if canny_flag else "")
+        paths[key] = dict(scene=scene, max_stages=depth,
+                          candidates=len(rc.candidates),
+                          launches=pl, parity=within_parity(key, rc, pc),
+                          equal_to_cpu=bool(np.array_equal(rc.candidates,
+                                                           pc.candidates)))
+        if canny_flag:
+            edges = canny(torch.from_numpy(small).cuda(), 0, 50)
+            need(np.array_equal(edges.cpu().numpy(), canny_np(small, 0, 50)),
+                 "canny on the card differs from canny_np")
+            paths[key]["canny_equal_to_numpy"] = True
+    out["paths"] = paths
+    say("scale_cascade", case="paths", shape=f"{SC_SHAPE[0]}x{SC_SHAPE[1]}",
+        **{k: json.dumps(v) for k, v in paths.items()})
+
+    # find-biggest-object: the card's search (float64) and the golden path
+    fdet = ct.ScaleCascadeDetector(spec, SC_SHAPE, device="cuda",
+                                   dtype=torch.float64,
+                                   max_stages=FBO_STAGES)
+    fbo = {}
+    for rough in (False, True):
+        kw = dict(min_neighbors=1, min_size=(40, 40), rough_search=rough)
+        zero()
+        got = fdet.find_biggest_object(ph, **kw)
+        fl = counts()
+        only_compact("find-biggest", fl)
+        t1 = time.perf_counter()
+        gold = detect_multi_scale_reference(
+            ph, spec, find_biggest_object=True, max_stages=FBO_STAGES, **kw)
+        need(got.shape == (1, 4) and np.array_equal(got, gold),
+             f"find-biggest (rough {rough}): card {got.tolist()}, golden "
+             f"{gold.tolist()}")
+        fbo[f"rough_{rough}"] = dict(box=got.tolist(), launches=fl,
+                                     golden_seconds=time.perf_counter() - t1)
+    flags = api.CV_HAAR_FIND_BIGGEST_OBJECT | api.CV_HAAR_DO_ROUGH_SEARCH
+    via = ct.CascadeClassifier(spec, device="cuda", dtype=torch.float64) \
+        .detect_multi_scale(ph, min_neighbors=1, min_size=(40, 40),
+                            flags=flags, max_stages=FBO_STAGES)
+    need(np.array_equal(via, np.asarray(fbo["rough_True"]["box"])),
+         f"find-biggest through the classifier: {via.tolist()}")
+    out["find_biggest"] = fbo
+    say("scale_cascade", case="find_biggest",
+        shape=f"{SC_SHAPE[0]}x{SC_SHAPE[1]}", equal_to_golden=True,
+        **{k: json.dumps(v) for k, v in fbo.items()})
+
+    # frontalface_alt at 1080p: float32 against the card's own float64
+    big = frame(3)
+    aspec = ct.load_cascade(CASCADE)
+    b32 = ct.ScaleCascadeDetector(aspec, SHAPE, device="cuda", **DEMO_KNOBS)
+    zero()
+    rb = b32.detect(big, MIN_NEIGHBORS)
+    bl = counts()
+    only_compact("1080p", bl)
+    b64 = ct.ScaleCascadeDetector(aspec, SHAPE, device="cuda",
+                                  dtype=torch.float64, cap=b32.cap,
+                                  **DEMO_KNOBS)
+    rb64 = b64.detect(big, MIN_NEIGHBORS)
+    del b64
+    out["1080p"] = dict(
+        cascade=CASCADE, scales=b32.n_scales, cap=b32.cap,
+        candidates=len(rb.candidates), boxes=rb.boxes.tolist(),
+        launches=bl, parity_to_f64=within_parity("1080p f32", rb, rb64),
+        ms=best_ms(b32, big))
+    del b32
+    out["seconds"] = time.perf_counter() - t0
+    say("scale_cascade", case="1080p", shape=f"{SHAPE[0]}x{SHAPE[1]}",
+        seconds=round(out["seconds"], 3),
+        **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+           for k, v in out["1080p"].items()})
+    torch.cuda.empty_cache()
+    return out, det, demo
+
+
 def breakdown(det, frames) -> dict:
     """Device ms per frame of each phase of the v1 path, from CUDA events
     recorded between the phases of one pass (one synchronise); the votes
@@ -1456,6 +1703,9 @@ def main() -> int:
         say("phases", cascade=a2, batch=b, **phases[str(b)])
     ms_per_frame[a2] = path_times(a2det, a2b, a2, plain_reps=1)
 
+    # ---- scale-cascade mode: the reference demo's configuration --------
+    sc, sc_det, sc_frame = check_scale_cascade(ct, counters)
+
     # ---- the chain microbenchmark: mb_vpu3 ----------------------------
     from clfacedetection_torch.tools import mb_vpu3
     t0 = time.perf_counter()
@@ -1507,15 +1757,31 @@ def main() -> int:
         library_kernels_per_call=comp["library_kernels_per_call"])
     say("time", cascade=CASCADE, batch=1, after_profiler=True,
         kernel_ms_per_frame=round(after, 4))
+    # the demo configuration's launches a frame and device time, from the
+    # profiler (one detect at front 3), beside its best host time
+    sc_prof = profiled(lambda: sc_det.detect(sc_frame, MIN_NEIGHBORS), 1)
+    sc["demo"].update(launches_per_frame=sc_prof["kernels_per_call"],
+                      device_ms=sc_prof["device_ms"],
+                      device_busy_share=sc_prof["device_ms"]
+                      / sc["demo"]["ms_front_3"])
+    say("profiled", name="scale_cascade", cascade=DEMO_CASCADE,
+        launches_per_frame=sc_prof["kernels_per_call"],
+        device_ms=sc_prof["device_ms"], host_ms=sc["demo"]["ms_front_3"])
 
     entry = dict(results)
     entry["haar_tail"] = v1[a2]["haar_tail"]
     entry["tail_rows"] = v1[a2]["tail_rows"]
     paths = {CASCADE: launches, "photo_scene": photo_launches,
              **v1_launches, "mb_vpu3": mb_launches,
-             "direct": direct["launches"]}
+             "direct": direct["launches"],
+             "scale_cascade": sc["demo"]["launches"]}
+    # the compaction's launches: on scale-cascade mode's path (the demo
+    # configuration), the slice this record was extended for
     path_of = {"haar_tail": v1_launches[a2], "chain": mb_launches,
-               "tail_rows": v1_launches[a2]}
+               "tail_rows": v1_launches[a2],
+               "compact": sc["demo"]["launches"]}
+    entry["compact"] = dict(entry["compact"],
+                            launches_tail2_path=launches["compact"])
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=path_of.get(k, launches)[k], **entry[k])
@@ -1534,6 +1800,7 @@ def main() -> int:
     record["direct"] = direct
     record["roc"] = roc
     record["float64"] = f64
+    record["scale_cascade"] = sc
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -49,26 +49,15 @@ from ..ops.integral import IntegralImages, integral_images
 from ..ops.resize import resize_bilinear_u8, resize_plan
 from ..ops.stencil import build_stencils, stencil_values
 from ..ops.tail_rows import tail_rows, tail_rows_plain
-from .detector import DetectionResult, _build_clf_tables, _stage_paths
+from .detector import (STRATEGIES, DetectionResult, _build_clf_tables,
+                       _stage_paths, default_device)
 from .grouping import group_rectangles
 
 __all__ = ["PyramidDetector", "PyramidPlan", "default_device"]
 
 ACCEPT_CAP = 4096   # accepted windows read back per frame in one array
-STRATEGIES = (None, "per_stage", "block", "direct")
 # node values of one chunk of the direct strategy's product
 _DIRECT_CHUNK_ELEMS = 1 << 26
-
-
-def default_device() -> torch.device:
-    """The card.  The entry points run on CUDA unless given
-    ``device="cpu"``; without a card they raise rather than run the plain
-    versions unasked."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: pass device=\"cpu\" to run the plain PyTorch "
-            "versions of the kernels on the CPU")
-    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +115,8 @@ class PyramidPlan:
               max_size: Optional[Tuple[int, int]]) -> "PyramidPlan":
         H, W = image_shape
         factors = scale_factors(spec.window_w, spec.window_h, W, H,
-                                scale_factor, min_size, max_size)
+                                scale_factor, min_size, max_size,
+                                mode="scale_image")
         dims = [(int(cv_round(H / f)), int(cv_round(W / f)))
                 for f in factors]
         if not dims:

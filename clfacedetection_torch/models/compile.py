@@ -19,7 +19,7 @@ from .spec import MAX_RECTS, CascadeSpec
 
 __all__ = [
     "STAGE_THRESHOLD_BIAS", "cv_round", "ScaledCascade", "CompiledCascade",
-    "compile_cascade", "truncate_cascade", "scale_factors",
+    "compile_cascade", "truncate_cascade", "scale_factors", "scan_grid",
 ]
 
 # icv_stage_threshold_bias (tempcv.cpp:262), subtracted from every stage
@@ -196,14 +196,30 @@ def truncate_cascade(c: CompiledCascade, n_stages: int) -> CompiledCascade:
 def scale_factors(window_w: int, window_h: int, img_w: int, img_h: int,
                   scale_factor: float,
                   min_size: Tuple[int, int] = (0, 0),
-                  max_size: Optional[Tuple[int, int]] = None) -> List[float]:
-    """Scale-image pyramid factors exactly like the reference
-    (tempcv.cpp:1268-1296): grow while the downscaled image still fits a
-    base window; stop above ``max_size``, skip below ``min_size``."""
-    if max_size is None or max_size[0] == 0 or max_size[1] == 0:
-        max_size = (img_w, img_h)
+                  max_size: Optional[Tuple[int, int]] = None,
+                  mode: str = "scale_cascade") -> List[float]:
+    """Pyramid scale factors exactly like the reference.
+
+    ``mode="scale_cascade"`` (tempcv.cpp:1345-1360): count factors while
+    ``f*w0 < W-10 and f*h0 < H-10``; scales below ``min_size`` are skipped
+    inside the loop (tempcv.cpp:1377-1382) and ``max_size`` is not
+    consulted.  ``mode="scale_image"`` (tempcv.cpp:1268-1296): grow while
+    the downscaled image still fits a base window; stop above
+    ``max_size``, skip below ``min_size``."""
     out: List[float] = []
     f = 1.0
+    if mode == "scale_cascade":
+        while f * window_w < img_w - 10 and f * window_h < img_h - 10:
+            win_w = int(cv_round(window_w * f))
+            win_h = int(cv_round(window_h * f))
+            if win_w >= min_size[0] and win_h >= min_size[1]:
+                out.append(f)
+            f *= scale_factor
+        return out
+    if mode != "scale_image":
+        raise ValueError(f"unknown mode {mode!r}")
+    if max_size is None or max_size[0] == 0 or max_size[1] == 0:
+        max_size = (img_w, img_h)
     while True:
         win_w = int(cv_round(window_w * f))
         win_h = int(cv_round(window_h * f))
@@ -217,3 +233,18 @@ def scale_factors(window_w: int, window_h: int, img_w: int, img_h: int,
             out.append(f)
         f *= scale_factor
     return out
+
+
+def scan_grid(img_w: int, img_h: int, win_w: int, win_h: int,
+              factor: float) -> Tuple[float, np.ndarray, np.ndarray]:
+    """Scale-cascade scan positions (tempcv.cpp:1362-1376, 1139-1146):
+    ``(ystep, xs, ys)``, where the reference scans ``ix in [0, endX)`` at
+    ``x = cvRound(ix*ystep)`` (and so for y), ``ystep = max(2, factor)``
+    and ``endX = cvRound((W - winW)/ystep)``."""
+    ystep = max(2.0, float(factor))
+    end_x = int(cv_round((img_w - win_w) / ystep))
+    end_y = int(cv_round((img_h - win_h) / ystep))
+    ix = np.arange(max(end_x, 0), dtype=np.float64)
+    iy = np.arange(max(end_y, 0), dtype=np.float64)
+    return ystep, cv_round(ix * ystep).astype(np.int32), \
+        cv_round(iy * ystep).astype(np.int32)

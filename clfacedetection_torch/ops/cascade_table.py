@@ -55,13 +55,15 @@ the rest keep their order.  Absent rects and nodes are zeros.  Source:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..detect.detector import _ClfTables
 from ..models.compile import CompiledCascade
+
+if TYPE_CHECKING:
+    from ..detect.detector import _ClfTables
 
 __all__ = ["CascadeTable", "STAGE_WORDS", "CLF_HEAD", "NODE_WORDS",
            "MAX_T", "STUMP_WORDS", "NODE_VIEW_WORDS", "NODE_VIEW_PAD",

@@ -32,7 +32,8 @@ from .. import kernels
 from .cascade_table import STAGE_WORDS, STUMP_WORDS, CascadeTable
 
 __all__ = ["haar_front", "front_plain", "front_votes_plain", "vnf_plain",
-           "front_table_words", "front_smem_bytes", "front_launch"]
+           "variance_factor", "front_table_words", "front_smem_bytes",
+           "front_launch"]
 
 # csrc/haar_front.cu: a block of 8 warps owns BLOCK_Y x BLOCK_X positions;
 # its shared memory holds row masks and two lists of uint16 positions,
@@ -85,10 +86,11 @@ def _rect(p: torch.Tensor, ya: int, xa: int, yb: int, xb: int,
             - p[:, yb:yb + hv, xa:xa + wv] + p[:, yb:yb + hv, xb:xb + wv])
 
 
-def vnf_plain(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
-              table: CascadeTable, hv: int, wv: int,
-              dtype=torch.float32) -> torch.Tensor:
-    """Variance factor map [B, hv, wv].
+def variance_factor(win_sum: torch.Tensor, sq_hi: torch.Tensor,
+                    sq_lo: torch.Tensor, inv_area: float,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The variance factor from the int32 window sums of the ``sum``,
+    ``sq_hi`` and ``sq_lo`` planes over the variance rect.
 
     float32: ``var = fma(win_sq, inv, -(mean*mean))`` rounded once, which
     is what XLA:CPU computes for ``win_sq*inv - mean*mean``.  The fma is
@@ -96,13 +98,10 @@ def vnf_plain(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
     exact; the second rounding to float32 could in principle differ from
     a true fma on a rounding tie.  float64: separately rounded, with the
     unrounded ``inv_area`` (the JAX f64 path's constant)."""
-    ya, xa, yb, xb = table.equ
-    win_sum = _rect(sum_, ya, xa, yb, xb, hv, wv).to(dtype)
-    hi = _rect(sq_hi, ya, xa, yb, xb, hv, wv).to(dtype)
-    lo = _rect(sq_lo, ya, xa, yb, xb, hv, wv).to(dtype)
-    win_sq = hi * 256.0 + lo
+    win_sum = win_sum.to(dtype)
+    win_sq = sq_hi.to(dtype) * 256.0 + sq_lo.to(dtype)
     if dtype == torch.float32:
-        inv = float(np.float32(table.inv_area))
+        inv = float(np.float32(inv_area))
         mean = win_sum * inv
         var = (win_sq.double() * inv - (mean * mean).double()).float()
         # torch.sqrt on float32 CPU tensors is not correctly rounded (it
@@ -110,11 +109,22 @@ def vnf_plain(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
         # rounded to float32 it is, like the kernel's __fsqrt_rn
         root = torch.sqrt(var.double().clamp(min=0)).float()
     else:
-        inv = table.inv_area
-        mean = win_sum * inv
-        var = win_sq * inv - mean * mean
+        mean = win_sum * inv_area
+        var = win_sq * inv_area - mean * mean
         root = torch.sqrt(var.clamp(min=0))
     return torch.where(var >= 0, root, torch.ones_like(var))
+
+
+def vnf_plain(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
+              table: CascadeTable, hv: int, wv: int,
+              dtype=torch.float32) -> torch.Tensor:
+    """Variance factor map [B, hv, wv] (``variance_factor`` at every
+    position)."""
+    ya, xa, yb, xb = table.equ
+    return variance_factor(_rect(sum_, ya, xa, yb, xb, hv, wv),
+                           _rect(sq_hi, ya, xa, yb, xb, hv, wv),
+                           _rect(sq_lo, ya, xa, yb, xb, hv, wv),
+                           table.inv_area, dtype)
 
 
 def _corner_sum(p: torch.Tensor, corners: np.ndarray, hv: int,

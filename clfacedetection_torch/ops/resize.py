@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["resize_coeffs", "ResizePlan", "resize_plan",
-           "resize_bilinear_u8"]
+           "resize_bilinear_u8", "resize_bilinear_u8_np"]
 
 COEF_BITS = 11
 COEF_SCALE = 1 << COEF_BITS  # 2048
@@ -37,6 +37,22 @@ def resize_coeffs(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray,
     c0 = np.rint((np.float32(1) - f) * np.float32(COEF_SCALE)).astype(np.int32)
     c1 = np.rint(f * np.float32(COEF_SCALE)).astype(np.int32)
     return s.astype(np.int32), c0, c1
+
+
+def resize_bilinear_u8_np(img: np.ndarray, out_hw: Tuple[int, int]
+                          ) -> np.ndarray:
+    """Numpy twin of ``resize_bilinear_u8`` (bit-equal), for the golden
+    path's scale-image mode."""
+    h2, w2 = out_hw
+    h, w = img.shape[-2:]
+    sx, cx0, cx1 = resize_coeffs(w, w2)
+    sy, cy0, cy1 = resize_coeffs(h, h2)
+    a = img.astype(np.int32)
+    t = a[..., :, sx] * cx0 + a[..., :, np.minimum(sx + 1, w - 1)] * cx1
+    r0 = t[..., sy, :] >> 4
+    r1 = t[..., np.minimum(sy + 1, h - 1), :] >> 4
+    val = ((cy0[:, None] * r0) >> 16) + ((cy1[:, None] * r1) >> 16)
+    return np.clip((val + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 class ResizePlan(NamedTuple):

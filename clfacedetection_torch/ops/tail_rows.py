@@ -32,31 +32,40 @@ _MAX_TREE_STAGES = 64
 _MAX_LEAVES = 32
 
 
-def _cart_votes(nv: torch.Tensor, svnf: torch.Tensor, table: CascadeTable,
-                c0: int) -> torch.Tensor:
-    """Classifier votes [B, cap, m] from node values [B, cap, m, T] of
-    classifiers ``c0..c0+m-1`` (JAX ``_cart_votes``, pyramid.py:68-116):
-    ``cmp = node < thr * vnf`` with the product rounded first, then the
-    walk from node 0 to the reached leaf's alpha.  Padded nodes are never
-    walked: links only point to a classifier's own later nodes."""
-    m, T = nv.shape[2], nv.shape[3]
+def clf_tensors(table, c0: int, c1: int, device, dtype):
+    """(thr, alpha, left, right) of classifiers ``c0..c1-1`` on
+    ``device``, for ``_cart_votes``: thresholds [m, T] and leaves
+    [m, T+1] in ``dtype``, links int64 [m, T].  ``table`` holds them as
+    numpy arrays named ``thr``, ``alpha``, ``left`` and ``right``."""
+    sl = slice(c0, c1)
+    return (torch.from_numpy(table.thr[sl]).to(device, dtype),
+            torch.from_numpy(table.alpha[sl]).to(device, dtype),
+            torch.from_numpy(table.left[sl]).to(device).long(),
+            torch.from_numpy(table.right[sl]).to(device).long())
+
+
+def _cart_votes(nv: torch.Tensor, svnf: torch.Tensor, thr: torch.Tensor,
+                alpha: torch.Tensor, left: torch.Tensor,
+                right: torch.Tensor) -> torch.Tensor:
+    """Classifier votes [..., m] from node values [..., m, T] of m
+    classifiers with the tables of ``clf_tensors`` (JAX ``_cart_votes``,
+    pyramid.py:68-116): ``cmp = node < thr * vnf`` with the product
+    rounded first, then the walk from node 0 to the reached leaf's alpha.
+    Padded nodes are never walked: links only point to a classifier's own
+    later nodes."""
+    m, T = nv.shape[-2:]
     dev, dtype = nv.device, nv.dtype
-    sl = slice(c0, c0 + m)
-    thr = torch.from_numpy(table.thr[sl]).to(dev, dtype)          # [m, T]
     cmp = nv < thr * svnf[..., None, None]
-    alpha = torch.from_numpy(table.alpha[sl]).to(dev, dtype)      # [m, T+1]
     rows = torch.arange(m, device=dev)
     if T == 1:                       # stumps: leaves alpha[-left/-right]
-        a_l = alpha[rows, torch.from_numpy(-table.left[sl, 0]).to(dev)]
-        a_r = alpha[rows, torch.from_numpy(-table.right[sl, 0]).to(dev)]
+        a_l = alpha[rows, -left[:, 0]]
+        a_r = alpha[rows, -right[:, 0]]
         return torch.where(cmp[..., 0], a_l, a_r)
-    left = torch.from_numpy(table.left[sl]).to(dev).long()
-    right = torch.from_numpy(table.right[sl]).to(dev).long()
-    idx = torch.zeros(cmp.shape[:3], dtype=torch.long, device=dev)
-    val = torch.zeros(cmp.shape[:3], dtype=dtype, device=dev)
-    done = torch.zeros(cmp.shape[:3], dtype=torch.bool, device=dev)
+    idx = torch.zeros(cmp.shape[:-1], dtype=torch.long, device=dev)
+    val = torch.zeros(cmp.shape[:-1], dtype=dtype, device=dev)
+    done = torch.zeros(cmp.shape[:-1], dtype=torch.bool, device=dev)
     for _ in range(T):
-        c = cmp.gather(3, idx[..., None])[..., 0]
+        c = cmp.gather(-1, idx[..., None])[..., 0]
         nxt = torch.where(c, left[rows, idx], right[rows, idx])
         leaf = nxt <= 0
         av = alpha[rows, (-nxt).clamp(0, T)]
@@ -106,7 +115,8 @@ def tail_rows_plain(values: torch.Tensor, svnf: torch.Tensor,
                 en += 1
             ca, cb = int(c0s[st]), int(c0s[en - 1] + cnts[en - 1])
             nv = values[:, :, ca * T:cb * T].reshape(B, cap, cb - ca, T)
-            votes = _cart_votes(nv.to(dtype), svnf, table, ca)
+            votes = _cart_votes(nv.to(dtype), svnf,
+                                *clf_tensors(table, ca, cb, dev, dtype))
             ofs = torch.from_numpy(c0s[st:en] - ca).to(dev).long()
             cnt = torch.from_numpy(cnts[st:en]).to(dev).long()
             g = torch.zeros((B, cap, en - st), dtype=dtype, device=dev)

@@ -98,11 +98,24 @@ def _level_row(lv):
 def test_pyramid_plan_equal(name, shape):
     js, ts = j_load_cascade(name), t_load_cascade(name)
     for sf, min_size in ((1.1, (40, 40)), (1.2, (0, 0))):
-        jf = jcompile.scale_factors(js.window_w, js.window_h, shape[1],
-                                    shape[0], sf, min_size, None,
-                                    mode="scale_image")
-        assert tcompile.scale_factors(ts.window_w, ts.window_h, shape[1],
-                                      shape[0], sf, min_size, None) == jf
+        # both modes, and the default (scale-cascade in both packages)
+        for mode in ("scale_image", "scale_cascade", None):
+            kw = {} if mode is None else dict(mode=mode)
+            jf = jcompile.scale_factors(js.window_w, js.window_h, shape[1],
+                                        shape[0], sf, min_size, None, **kw)
+            assert tcompile.scale_factors(ts.window_w, ts.window_h,
+                                          shape[1], shape[0], sf, min_size,
+                                          None, **kw) == jf
+        for f in jcompile.scale_factors(js.window_w, js.window_h, shape[1],
+                                        shape[0], sf, min_size):
+            w = int(jcompile.cv_round(js.window_w * f))
+            h = int(jcompile.cv_round(js.window_h * f))
+            jg = jcompile.scan_grid(shape[1], shape[0], w, h, f)
+            tg = tcompile.scan_grid(shape[1], shape[0], w, h, f)
+            assert tg[0] == jg[0]
+            for a, b in zip(tg[1:], jg[1:]):
+                np.testing.assert_array_equal(a, b)
+                assert a.dtype == b.dtype
         jp = JPlan.build(js, shape, sf, min_size, None)
         tp = TPlan.build(ts, shape, sf, min_size, None)
         assert [_level_row(lv) for lv in tp.levels] == \

@@ -314,7 +314,10 @@ def test_float64_refused_on_cuda_device(face, monkeypatch):
 
 def test_canny_flag_ignored_in_scale_image_mode(face):
     """CV_HAAR_DO_CANNY_PRUNING acts only in scale-cascade mode, so the
-    scale-image detector gives JAX's boxes with the flag set."""
+    scale-image detector gives JAX's boxes with the flag set.
+    CV_HAAR_FIND_BIGGEST_OBJECT, which raised here before scale-cascade
+    mode was ported, now runs: on the CPU the golden path, as JAX's does
+    off the TPU."""
     flags = ct.api.CV_HAAR_DO_CANNY_PRUNING
     name = "haarcascade_frontalface_alt"
     tb = ct.CascadeClassifier(name, device="cpu").detect_multi_scale(
@@ -323,6 +326,11 @@ def test_canny_flag_ignored_in_scale_image_mode(face):
         face, min_neighbors=2, min_size=(20, 20), flags=flags)
     assert len(jb) > 0
     np.testing.assert_array_equal(tb, jb)
-    with pytest.raises(NotImplementedError, match="biggest"):
-        ct.CascadeClassifier(name, device="cpu").detect_multi_scale(
-            face, flags=ct.api.CV_HAAR_FIND_BIGGEST_OBJECT)
+    crop = face[20:100, 30:130]
+    kw = dict(flags=ct.api.CV_HAAR_FIND_BIGGEST_OBJECT, min_neighbors=1,
+              min_size=(36, 36), scale_factor=1.3)
+    tb = ct.CascadeClassifier(name, device="cpu").detect_multi_scale(
+        crop, **kw)
+    jb = japi.CascadeClassifier(name).detect_multi_scale(crop, **kw)
+    assert len(jb) == 1
+    np.testing.assert_array_equal(tb, jb)
