@@ -39,7 +39,8 @@ points and times kernels and paths with CUDA events:
   configuration (frontalface_default, 640x480, scaleFactor 1.1, minSize
   40x40) through ``CascadeClassifier(mode="scale_cascade")``, the card
   against the CPU in float32 (PARITY bounds, minNeighbors 3 and 0) and in
-  float64 (box for box), timed at front 3 and at front ``n_stages``; CART,
+  float64 (box for box), timed at front 3 and at front ``n_stages`` (from
+  the detector's CUDA graph; the eager frame beside it); CART,
   tilted, stage-tree and Canny-pruning cascades at 240x320 against the CPU
   (``canny`` on the card bit-equal to ``canny_np``); find-biggest-object's
   search on the card in float64 against the golden path, with and without
@@ -75,6 +76,29 @@ host included) and device time alone (a CUDA graph of the calls replayed,
 and ``torch.profiler`` kernel durations).  The profiler runs last: once
 it has run, every later launch of the process costs more host time
 (measured by timing frontalface_alt's batch-1 pipeline again after it).
+
+The ``programs`` phase holds every float32 path's captured CUDA graph
+(``runtime/program.py``) against its eager path, byte for byte in the
+readback: frontalface_alt at batch 1 and 8 (``synth_scene`` and
+``photo_scene``), ``strategy="block"`` and ``"direct"``, the ROC output of
+alt and alt2, alt2 and alt_tree (at its regrown 327,680 slots), a batch-8
+``detect_stream`` over 8 batches threaded and unthreaded against the eager
+stream and one that regrows its cap in the middle, BASELINE config 5
+(profileface, upperbody, fullbody) in one ``MultiCascadeBatchedDetector``
+graph against each cascade's own detector with one copy to the host a
+batch, and scale-cascade mode's demo configuration; it prints eager and
+graph ms a frame, capture and instantiation times, graph nodes and the
+memory reserved.
+
+A wrapper counts the launches of its kernel that run on the card: eager
+calls and a program's warm-up, never a graph capture (which runs
+nothing) and never a replay (which calls no wrapper); the programs count
+their replays.  The ``launches`` of the kernels line are the main paths'
+own runs at the end of the script (frontalface_alt and frontalface_alt2
+at 1080p, batch 1, and scale-cascade mode's demo, each through
+``detect`` and its graph replay), counted from ``torch.profiler``'s kernel
+records by each kernel's symbol, with every count set to 0 just before;
+the profiler runs last because it slows every later launch's host side.
 
 Each phase prints one line; the line before the last is the JSON record
 of the kernels, the last ``{"ok": true, "device": {...}}``.  Any failure
@@ -159,6 +183,19 @@ PEAK_OPS = 67e12
 # run of the JAX package, docs/PERF.md:57)
 JAX_PHOTO_SURVIVORS = 18388
 CHAIN_TRIPS = (4, 16)
+# the programs phase: batches of the batch-8 stream, the cap a regrowing
+# stream starts at, and BASELINE config 5's cascades
+STREAM_BATCHES = 8
+STREAM_SMALL_CAP = 256
+CONFIG5 = ("haarcascade_profileface", "haarcascade_upperbody",
+           "haarcascade_fullbody")
+
+
+# each kernel's symbol in csrc/; the profiler's records name it demangled
+# ("(anonymous namespace)::front_kernel<true, false>(Front)") or mangled
+KERNEL_SYMBOLS = {"haar_front": "front_kernel", "compact": "compact_kernel",
+                  "haar_tail2": "tail2_kernel", "haar_tail": "tail_kernel",
+                  "chain": "chain_kernel", "tail_rows": "rows_kernel"}
 
 
 class SmokeFailure(Exception):
@@ -195,6 +232,107 @@ def timed(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def reset_counts(counters) -> None:
+    """Every count from 0: the kernel wrappers' and the programs'
+    replays."""
+    from clfacedetection_torch.runtime import Program
+    for c in counters.values():
+        c.launches = 0
+    Program.replays = 0
+
+
+def read_counts(counters) -> dict:
+    """Each kernel's launches since ``reset_counts`` that its wrapper
+    counted: eager calls and programs' warm-ups (not graph replays)."""
+    import torch
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}
+
+
+def count_routes(counters) -> dict:
+    """The wrappers' counts and the programs' replays since
+    ``reset_counts``."""
+    from clfacedetection_torch.runtime import Program
+    return dict(wrapper=read_counts(counters), replays=Program.replays)
+
+
+def profiled_drive(counters, fn, what: str):
+    """``fn()``, a drive of a main path, under ``torch.profiler`` with
+    every count from 0.  Returns its result and each kernel's executions
+    on the card, from the profiler's kernel records by the kernel's
+    symbol (a graph replay's launches included), beside the wrappers'
+    counts (eager launches) and the programs' replays."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from clfacedetection_torch.runtime import Program
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wrapper = read_counts(counters)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launches = {k: sum(1 for n in names
+                       if re.search(rf"(?:^|[\s:\d]){sym}(?:[<(IE]|$)", n))
+                for k, sym in KERNEL_SYMBOLS.items()}
+    need(all(launches[k] >= wrapper[k] for k in launches),
+         f"{what}: the profiler saw fewer launches {launches} than the "
+         f"wrappers counted {wrapper}")
+    return out, dict(launches=launches, wrapper=wrapper,
+                     replays=Program.replays, device_records=len(names))
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds per call of ``fn`` (which ends in a readback to
+    the host), the mean of ``reps`` calls after one warm-up."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def replay_ms(prog, reps: int) -> float:
+    """Device ms per replay of a program's graph: CUDA events around
+    ``reps`` back-to-back replays on the program stream."""
+    import torch
+    s = prog.stream
+    with torch.cuda.stream(s):
+        prog.graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record(s)
+        for _ in range(reps):
+            prog.graph.replay()
+        stop.record(s)
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_nodes(prog):
+    """The node count of a program's CUDA graph (``cuGraphGetNodes``), or
+    None where this torch keeps no graph after instantiating it."""
+    import ctypes
+    try:
+        raw = prog.graph.raw_cuda_graph()
+    except (AttributeError, RuntimeError):
+        return None
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(raw), None, ctypes.byref(n))
+    return int(n.value) if err == 0 else None
+
+
+def same_bytes(a, b) -> bool:
+    """Two numpy arrays of one dtype and shape, equal byte for byte."""
+    import numpy as np
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                               np.ascontiguousarray(b).view(np.uint8)))
 
 
 def bits_equal(a, b) -> bool:
@@ -332,10 +470,28 @@ def profiled(fn, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    need(len(ev) > 0, "the profiler saw no device work")
+    every = list(prof.events())
+    ev = [e for e in every if e.device_type == DeviceType.CUDA]
+    need(len(ev) > 0, f"the profiler saw no device work ({len(every)} "
+         f"host events: {sorted({e.name for e in every})[:8]})")
     us = sum(e.time_range.end - e.time_range.start for e in ev)
     return dict(device_ms=us / 1e3 / reps, kernels_per_call=len(ev) / reps)
+
+
+def profiler_warmup() -> int:
+    """One ``torch.profiler`` trace of a small kernel, its records
+    discarded: the first trace of a process once came back without its
+    device records (one run of four on the H100).  Returns the device
+    records it saw, for the log."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (x + 1).sum()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 def nonzero_static(flags, cap):
@@ -1111,8 +1267,10 @@ def check_scale_cascade(ct, counters) -> dict:
       "scale_cascade")`` with every count from 0 (the compaction launched,
       no other kernel), the card in float32 against the CPU in float32
       within the PARITY bounds at minNeighbors 3 and 0, and in float64
-      box for box; ms a frame, best of 3, at front 3 and at front
-      ``n_stages``;
+      box for box; ms a frame (the graph), best of 3, at front 3 and at
+      front ``n_stages``; the demo's graph against the eager frame
+      function, byte for byte, with both times, the graph's nodes and its
+      capture and instantiation times;
     * every path at 240x320 through the classifier, the card against the
       CPU in float32 within the PARITY bounds: frontalface_alt2 (CART),
       mcs_nose (tilted), frontalface_alt_tree (stage tree) and
@@ -1137,12 +1295,10 @@ def check_scale_cascade(ct, counters) -> dict:
     api = ct.api
 
     def zero():
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(counters)
 
     def counts():
-        torch.cuda.synchronize()
-        return {k: c.launches for k, c in counters.items()}
+        return read_counts(counters)
 
     def only_compact(what, launches):
         need(launches["compact"] > 0
@@ -1202,6 +1358,32 @@ def check_scale_cascade(ct, counters) -> dict:
     demo_rec["f64_parity_to_f32"] = parity(r3, r64)
     del g64
     demo_rec["ms_front_3"] = best_ms(det, demo)
+    # the programs phase's scale-cascade case: the demo's graph (prep, the
+    # scale loop and the pack) against the eager frame function
+    prog = det.program()
+    need(prog.graphed and prog.graph is not None, "demo: no CUDA graph")
+
+    def eager_frame():
+        return det._frame_device(det.put(demo), det.cap, det._canny_steps)[
+            "packed"].cpu().numpy()
+
+    need(same_bytes(prog.read(prog.run(demo))["packed"], eager_frame()),
+         "demo: the graph's packed array differs from the eager path's")
+    zero()
+    prog.read(prog.run(demo))
+    per_frame = count_routes(counters)
+    demo_rec["program"] = dict(
+        nodes=graph_nodes(prog), capture_s=prog.capture_s,
+        instantiate_s=prog.instantiate_s,
+        replays_per_frame=per_frame["replays"],
+        wrapper_launches_per_frame=per_frame["wrapper"],
+        graph_ms=host_ms(lambda: prog.read(prog.run(demo)), 5),
+        eager_ms=host_ms(eager_frame, 3),
+        graph_device_ms=replay_ms(prog, 5),
+        reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    say("programs", case="scale_cascade_demo", equal_to_eager=True,
+        **{k: json.dumps(v) if isinstance(v, dict) else v
+           for k, v in demo_rec["program"].items()})
     deep = ct.ScaleCascadeDetector(spec, VGA, device="cuda",
                                    front_stages=spec.n_stages, **DEMO_KNOBS)
     t1 = time.perf_counter()
@@ -1309,6 +1491,213 @@ def check_scale_cascade(ct, counters) -> dict:
     return out, det, demo
 
 
+def program_case(det, frames, what: str, reps: int = 10) -> dict:
+    """The detector's program for ``frames`` (host uint8 [B, H, W]) at its
+    cap against the eager ``_detect_device``: the graph's readback outputs
+    equal the eager path's byte for byte.  Host ms a frame (host frames in,
+    numpy out) and device ms a frame (CUDA events around back-to-back
+    calls of the device part: eager calls, graph replays) for both, the
+    capture and instantiation times, the graph's nodes and the memory
+    reserved after the capture."""
+    import torch
+    B, cap = len(frames), det.cap
+    t0 = time.perf_counter()
+    prog = det.program(B, cap)
+    build_s = time.perf_counter() - t0
+    need(prog.graphed and prog.graph is not None,
+         f"{what}: the program is not a CUDA graph")
+    got = prog.read(prog.run(frames))
+    fr = det.put(frames)
+    eager = det._detect_device(fr, cap)
+    for k in prog.names:
+        need(same_bytes(got[k], eager[k].cpu().numpy()),
+             f"{what}: the graph's {k} differs from the eager path's")
+    del eager
+    rec = dict(batch=B, cap=cap, nodes=graph_nodes(prog),
+               capture_s=prog.capture_s, instantiate_s=prog.instantiate_s,
+               build_s=build_s,
+               accepted=int(got["packed"][:, 1].sum()),
+               reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    rec["graph_host_ms"] = host_ms(lambda: prog.read(prog.run(frames)),
+                                   reps) / B
+    rec["eager_host_ms"] = host_ms(
+        lambda: det._detect_device(det.put(frames), cap)["packed"].cpu()
+        .numpy(), reps) / B
+    rec["graph_device_ms"] = replay_ms(prog, reps) / B
+    rec["eager_device_ms"] = timed(lambda: det._detect_device(fr, cap),
+                                   reps) / B
+    say("programs", case=what, equal_to_eager=True,
+        **{k: json.dumps(v) if isinstance(v, dict) else v
+           for k, v in rec.items()})
+    return rec
+
+
+def same_results(got, want, what: str) -> None:
+    """Two lists of per-batch DetectionResult lists: equal candidates,
+    boxes and neighbour counts, frame for frame, in order."""
+    import numpy as np
+    need(len(got) == len(want), f"{what}: {len(got)} batches, not "
+         f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        need(len(g) == len(w), f"{what}: batch {i} lost frames")
+        for b, (x, y) in enumerate(zip(g, w)):
+            need(np.array_equal(x.candidates, y.candidates)
+                 and np.array_equal(x.boxes, y.boxes)
+                 and np.array_equal(x.neighbors, y.neighbors),
+                 f"{what}: batch {i} frame {b} differs")
+
+
+def check_stream_programs(ct, spec, stack) -> dict:
+    """``detect_stream`` at batch 8 over ``STREAM_BATCHES`` batches from
+    its programs, threaded and unthreaded, against the eager stream (the
+    parent's: ``_detect_device`` enqueued, readback and grouping on one
+    worker thread), in order; frames/s of each, eager and graph in turns.
+    Then a stream that starts at ``STREAM_SMALL_CAP`` and regrows in the
+    middle, against the same batches at the large cap."""
+    import numpy as np
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+    from clfacedetection_torch.detect.pyramid import finish
+    frames = list(stack.values())
+    batches = [np.stack([frames[(i + j) % len(frames)]
+                         for j in range(BATCH)])
+               for i in range(STREAM_BATCHES)]
+    bdet = ct.BatchedPyramidDetector(spec, SHAPE, batch=BATCH,
+                                     device="cuda", **KNOBS)
+    det = bdet.det
+    list(bdet.detect_stream(batches[:2], MIN_NEIGHBORS))   # the capture
+    cap = det.cap
+
+    def eager_stream():
+        ex, q, out = ThreadPoolExecutor(1), deque(), []
+
+        def drain(dev):
+            return [finish(c, o, MIN_NEIGHBORS)
+                    for c, o in det.readback(dev, cap)]
+        try:
+            for b in batches:
+                q.append(ex.submit(drain, det._detect_device(det.put(b),
+                                                             cap)))
+                if len(q) >= 2:
+                    out.append(q.popleft().result())
+            while q:
+                out.append(q.popleft().result())
+        finally:
+            ex.shutdown(wait=True)
+        return out
+
+    def fps(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, len(batches) * BATCH / (time.perf_counter() - t)
+
+    want, e1 = fps(eager_stream)
+    got_t, g_t = fps(lambda: list(bdet.detect_stream(batches, MIN_NEIGHBORS,
+                                                     threaded=True)))
+    got_u, g_u = fps(lambda: list(bdet.detect_stream(batches, MIN_NEIGHBORS,
+                                                     threaded=False)))
+    _, e2 = fps(eager_stream)
+    same_results(got_t, want, "threaded graph stream")
+    same_results(got_u, want, "unthreaded graph stream")
+    need(det.cap == cap, "the stream regrew its cap at the large cap")
+    flat = np.full((BATCH,) + SHAPE, 128, np.uint8)
+    regrow = [flat, flat, batches[0], batches[1], flat, batches[2]]
+    small = ct.BatchedPyramidDetector(spec, SHAPE, batch=BATCH,
+                                      device="cuda",
+                                      **dict(KNOBS, cap=STREAM_SMALL_CAP))
+    t0 = time.perf_counter()
+    got_r = list(small.detect_stream(regrow, MIN_NEIGHBORS))
+    regrow_s = time.perf_counter() - t0
+    need(small.det.cap > STREAM_SMALL_CAP, "the small-cap stream never "
+         "regrew")
+    need(small.det._program.key == (BATCH, small.det.cap),
+         "the regrown stream's program is not at its grown cap")
+    same_results(got_r, [bdet.detect(b, MIN_NEIGHBORS) for b in regrow],
+                 "regrowing stream")
+    rec = dict(batch=BATCH, batches=len(batches),
+               frames=len(batches) * BATCH, cap=cap,
+               eager_fps=[e1, e2], graph_threaded_fps=g_t,
+               graph_unthreaded_fps=g_u, regrow_from=STREAM_SMALL_CAP,
+               regrow_to=small.det.cap, regrow_seconds=regrow_s)
+    say("programs", case="stream", equal_to_eager=True, **rec)
+    return rec
+
+
+def check_config5(ct, counters, frames8):
+    """BASELINE config 5 at 1080p, batch 8: profileface (tail2), upperbody
+    and fullbody (the v1 tail) in one ``MultiCascadeBatchedDetector``
+    graph.  Every kernel of both tails runs in it; one copy to the host a
+    batch (the stacked packed array); each cascade's candidates equal its
+    own ``BatchedPyramidDetector``'s (its own graphs); the fused graph's
+    readback equals the fused eager function's byte for byte; ms a frame
+    of both."""
+    import torch
+    specs = [ct.load_cascade(n) for n in CONFIG5]
+    t0 = time.perf_counter()
+    multi = ct.MultiCascadeBatchedDetector(specs, SHAPE, BATCH,
+                                           device="cuda", **KNOBS)
+    reset_counts(counters)
+    res = multi.detect(frames8, MIN_NEIGHBORS)
+    launches = read_counts(counters)
+    routes = count_routes(counters)
+    first_s = time.perf_counter() - t0
+    need(all(launches[k] > 0 for k in ("haar_front", "compact",
+                                       "haar_tail2", "haar_tail",
+                                       "tail_rows")),
+         f"config 5 did not run both tails' kernels: {launches}")
+    prog = multi._program
+    caps = prog.key[1]
+    need(prog.graphed and prog.names == ("packed_all",)
+         and len(prog.static) == 1,
+         "config 5: more than one copy to the host a batch")
+    need(sum(len(r.candidates) for rk in res for r in rk) > 0,
+         "config 5: no candidates")
+    for k, spec in enumerate(specs):
+        single = ct.BatchedPyramidDetector(spec, SHAPE, BATCH,
+                                           device="cuda", **KNOBS)
+        same_results([res[k]], [single.detect(frames8, MIN_NEIGHBORS)],
+                     f"config 5 {CONFIG5[k]}")
+        need(single.det.cap == caps[k], f"config 5 {CONFIG5[k]}: cap "
+             f"{caps[k]} against its own detector's {single.det.cap}")
+        del single
+    fused = multi._fused(caps)
+    fr = multi.put(frames8)
+    got = prog.read(prog.run(frames8))["packed_all"]
+    need(same_bytes(got, fused(fr)["packed_all"].cpu().numpy()),
+         "config 5: the graph's packed array differs from the eager one")
+    rec = dict(cascades=list(CONFIG5), batch=BATCH, caps=list(caps),
+               candidates=[sum(len(r.candidates) for r in rk) for rk in res],
+               launches=launches, routes=routes, first_seconds=first_s,
+               nodes=graph_nodes(prog), capture_s=prog.capture_s,
+               instantiate_s=prog.instantiate_s,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    rec["graph_host_ms"] = host_ms(lambda: prog.read(prog.run(frames8)),
+                                   5) / BATCH
+    rec["eager_host_ms"] = host_ms(
+        lambda: fused(multi.put(frames8))["packed_all"].cpu().numpy(),
+        5) / BATCH
+    rec["graph_device_ms"] = replay_ms(prog, 5) / BATCH
+    rec["eager_device_ms"] = timed(lambda: fused(fr), 5) / BATCH
+    say("programs", case="config5", equal_to_own_detectors=True,
+        **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+           for k, v in rec.items()})
+    return rec, multi
+
+
+def dtoh_copies(fn) -> int:
+    """Copies from the card to the host that ``fn`` makes, from the
+    profiler's memcpy records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "DtoH" in e.name)
+
+
 def breakdown(det, frames) -> dict:
     """Device ms per frame of each phase of the v1 path, from CUDA events
     recorded between the phases of one pass (one synchronise); the votes
@@ -1393,21 +1782,19 @@ def main() -> int:
                 "chain": chain, "tail_rows": tail_rows}
 
     def counted(fn):
-        """``fn()`` with every count from 0; its result and the counts."""
-        for c in counters.values():
-            c.launches = 0
+        """``fn()`` with every count from 0; its result and the wrappers'
+        counts (``read_counts``: eager launches, a program's warm-up
+        included)."""
+        reset_counts(counters)
         out = fn()
-        torch.cuda.synchronize()
-        return out, {k: c.launches for k, c in counters.items()}
+        return out, read_counts(counters)
 
     def drive(det, gray):
         """One detect() through the entry point with every count from 0;
-        returns the result and the counts."""
-        for fn in counters.values():
-            fn.launches = 0
-        res = det.detect(gray, min_neighbors=MIN_NEIGHBORS)
-        torch.cuda.synchronize()
-        return res, {k: fn.launches for k, fn in counters.items()}
+        returns the result and the counts.  On a detector's first call
+        they are its program's warm-up, the one eager run before the
+        capture."""
+        return counted(lambda: det.detect(gray, min_neighbors=MIN_NEIGHBORS))
 
     def same_as_plain(det, gray, res, what):
         frames = det.put(gray)
@@ -1464,7 +1851,11 @@ def main() -> int:
     # the JAX bench's scene: photo_scene, the survivors beside the JAX's
     from clfacedetection_torch.utils import photo_scene
     photo = photo_scene(SHAPE)
-    pres, photo_launches = drive(det, photo)
+    # a detector of its own, so that the drive warms up and captures its
+    # program (a replay of det's would call no wrapper)
+    pdet = ct.PyramidDetector(spec, SHAPE, device="cuda", **KNOBS)
+    pres, photo_launches = drive(pdet, photo)
+    del pdet
     need(all(photo_launches[k] > 0 for k in ("haar_front", "compact",
                                              "haar_tail2"))
          and photo_launches["haar_tail"] == 0
@@ -1547,6 +1938,21 @@ def main() -> int:
     ms_per_frame = {CASCADE: path_times(det, bdet, CASCADE)}
     del bdet
 
+    # ---- programs: the paths from their captured CUDA graphs ---------
+    t_prog = time.perf_counter()
+    stack8 = np.stack(list(stack.values()))
+    programs = {}
+    for what, frames_ in (("alt_b1_synth", gray[None]),
+                          ("alt_b1_photo", photo[None]),
+                          ("alt_b8_synth", stack8),
+                          ("alt_b8_photo", np.stack([photo] * BATCH))):
+        programs[what] = program_case(det, frames_, what)
+    programs["stream"] = check_stream_programs(ct, spec, stack)
+    programs["config5"], multi5 = check_config5(ct, counters, stack8)
+    programs["seconds"] = time.perf_counter() - t_prog
+    say("programs", case="alt_stream_config5",
+        seconds=round(programs["seconds"], 3))
+
     # ---- the v1 tail's path: CART, tilted, stage tree ----------------
     v1 = {}
     v1_launches = {}
@@ -1569,6 +1975,16 @@ def main() -> int:
         say("detect", cascade=cname, candidates=len(vres.candidates),
             overflow=vres.survivor_overflow, cap=vdet.cap,
             launches=json.dumps(vl), boxes=json.dumps(vres.boxes.tolist()))
+        if cname != V1_CASCADES[1]:
+            # the programs phase's v1 cases: the graph at the cap the main
+            # path regrew to (alt_tree: 327,680 slots) against the eager
+            # path; then the graph is let go, for the plain versions' room
+            programs[cname] = program_case(vdet, gray[None], cname, reps=3)
+            programs[cname]["max_reserved_gb"] = \
+                torch.cuda.max_memory_reserved() / 1e9
+        if vdet._program is not None:
+            vdet._program.release()
+            vdet._program = None
         # after the main path, so that the kernels are held to their plain
         # versions at the slot count it ran with (regrown where it overflowed)
         v1[cname] = check_v1(vdet, gray, None if vdet.is_tree
@@ -1593,6 +2009,7 @@ def main() -> int:
          "strategy=block differs from the per-stage path")
     say("block", cascade=CASCADE, candidates=len(bres.candidates),
         launches=json.dumps(bll), equal_to_per_stage=True)
+    programs["block"] = program_case(bl, gray[None], "block", reps=3)
     del bl
 
     # strategy="direct" on frontalface_alt: the stencil product, then the
@@ -1619,6 +2036,7 @@ def main() -> int:
     direct["per_stage_ms_per_frame"] = timed(
         lambda: det._detect_device(dfr, det.cap), 5)
     direct["seconds"] = time.perf_counter() - t0
+    programs["direct"] = program_case(dr, gray[None], "direct", reps=3)
     say("direct", cascade=CASCADE, candidates=len(dres.candidates),
         **{k: json.dumps(v) if isinstance(v, dict) else v
            for k, v in direct.items()})
@@ -1650,6 +2068,8 @@ def main() -> int:
         say("roc", cascade=cname, equal_to_plain=True,
             **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                for k, v in roc[cname].items()})
+        programs[f"roc_{cname}"] = program_case(rd, gray[None],
+                                                f"roc {cname}", reps=3)
         del rd
 
     # float64 on the card: the plain versions, box for box with the CPU
@@ -1710,12 +2130,10 @@ def main() -> int:
     from clfacedetection_torch.tools import mb_vpu3
     t0 = time.perf_counter()
     chain_checks = check_chain()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     tool = mb_vpu3.main(device="cuda", log=lambda line: print(
         f"[mb_vpu3] {line}", flush=True))
-    torch.cuda.synchronize()
-    mb_launches = {k: fn.launches for k, fn in counters.items()}
+    mb_launches = read_counts(counters)
     need(all(mb_launches[k] > 0 for k in ("chain", "haar_front", "compact",
                                           "haar_tail2")),
          f"mb_vpu3 did not run its kernels: {mb_launches}")
@@ -1744,6 +2162,7 @@ def main() -> int:
     # the profiler last (see the head of this file): the compaction's and
     # nonzero_static's device time from their kernels' durations, then
     # frontalface_alt's batch-1 pipeline timed again
+    say("profiled", name="warmup", device_records=profiler_warmup())
     comp = results["compact"]
     comp.update(profiled(lambda: compact(flags1, det.cap), 20))
     comp.update({f"library_{k}": v for k, v in
@@ -1757,16 +2176,55 @@ def main() -> int:
         library_kernels_per_call=comp["library_kernels_per_call"])
     say("time", cascade=CASCADE, batch=1, after_profiler=True,
         kernel_ms_per_frame=round(after, 4))
-    # the demo configuration's launches a frame and device time, from the
-    # profiler (one detect at front 3), beside its best host time
-    sc_prof = profiled(lambda: sc_det.detect(sc_frame, MIN_NEIGHBORS), 1)
-    sc["demo"].update(launches_per_frame=sc_prof["kernels_per_call"],
-                      device_ms=sc_prof["device_ms"],
-                      device_busy_share=sc_prof["device_ms"]
-                      / sc["demo"]["ms_front_3"])
+    # the demo configuration's kernels a frame and device time, from the
+    # profiler (one frame at front 3), eager and from its graph, beside
+    # their host times: the device's busy share
+    sc_prog = sc_det.program()
+    sc_prof = profiled(lambda: sc_det._frame_device(
+        sc_det.put(sc_frame), sc_det.cap, sc_det._canny_steps)[
+            "packed"].cpu(), 1)
+    sc_gprof = profiled(lambda: sc_prog.read(sc_prog.run(sc_frame)), 1)
+    pr = sc["demo"]["program"]
+    sc["demo"].update(
+        launches_per_frame=sc_prof["kernels_per_call"],
+        device_ms=sc_prof["device_ms"],
+        device_busy_share=sc_prof["device_ms"] / pr["eager_ms"],
+        graph_kernels_per_frame=sc_gprof["kernels_per_call"],
+        graph_device_ms=sc_gprof["device_ms"],
+        graph_device_busy_share=sc_gprof["device_ms"] / pr["graph_ms"],
+        graph_replay_share=pr["graph_device_ms"] / pr["graph_ms"])
     say("profiled", name="scale_cascade", cascade=DEMO_CASCADE,
         launches_per_frame=sc_prof["kernels_per_call"],
-        device_ms=sc_prof["device_ms"], host_ms=sc["demo"]["ms_front_3"])
+        device_ms=sc_prof["device_ms"], eager_host_ms=pr["eager_ms"],
+        graph_kernels_per_frame=sc_gprof["kernels_per_call"],
+        graph_device_ms=sc_gprof["device_ms"], graph_host_ms=pr["graph_ms"])
+    # config 5: one copy from the card to the host a batch
+    d2h = dtoh_copies(lambda: multi5._read(multi5.run_device(stack8)))
+    need(d2h == 1, f"config 5: {d2h} copies to the host a batch, not 1")
+    programs["config5"]["dtoh_copies_per_batch"] = d2h
+    programs["max_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    say("profiled", name="config5", dtoh_copies_per_batch=d2h,
+        max_reserved_gb=programs["max_reserved_gb"])
+
+    # the main paths' own runs, for the kernels line: each detector's
+    # program exists (one detect first), then every count from 0, one
+    # detect through the entry point under the profiler, every count read
+    main = {}
+    for what, mdet, img, uses in (
+            (CASCADE, det, gray, ("haar_front", "compact", "haar_tail2")),
+            (a2, a2det, gray, ("haar_front", "compact", "haar_tail",
+                               "tail_rows")),
+            ("scale_cascade", sc_det, sc_frame, ("compact",))):
+        mdet.detect(img, MIN_NEIGHBORS)
+        _, main[what] = profiled_drive(
+            counters, lambda: mdet.detect(img, MIN_NEIGHBORS), what)
+        ml = main[what]["launches"]
+        need(main[what]["replays"] >= 1
+             and all(ml[k] > 0 for k in uses)
+             and not any(v for k, v in ml.items() if k not in uses),
+             f"{what}: the main path's replay ran {ml}, not {uses}")
+        say("main_path", path=what, **{k: json.dumps(v) if isinstance(
+            v, dict) else v for k, v in main[what].items()})
 
     entry = dict(results)
     entry["haar_tail"] = v1[a2]["haar_tail"]
@@ -1775,18 +2233,29 @@ def main() -> int:
              **v1_launches, "mb_vpu3": mb_launches,
              "direct": direct["launches"],
              "scale_cascade": sc["demo"]["launches"]}
-    # the compaction's launches: on scale-cascade mode's path (the demo
-    # configuration), the slice this record was extended for
-    path_of = {"haar_tail": v1_launches[a2], "chain": mb_launches,
-               "tail_rows": v1_launches[a2],
-               "compact": sc["demo"]["launches"]}
-    entry["compact"] = dict(entry["compact"],
-                            launches_tail2_path=launches["compact"])
+    # each kernel's launches in its main path's run: the compaction's on
+    # scale-cascade mode's path (the demo configuration), the slice this
+    # record was extended for; the chain's in the mb_vpu3 run (eager)
+    path_of = {"haar_front": main[CASCADE]["launches"],
+               "haar_tail2": main[CASCADE]["launches"],
+               "haar_tail": main[a2]["launches"],
+               "tail_rows": main[a2]["launches"],
+               "compact": main["scale_cascade"]["launches"],
+               "chain": mb_launches}
+    entry["compact"] = dict(
+        entry["compact"],
+        launches_tail2_path=main[CASCADE]["launches"]["compact"])
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=path_of.get(k, launches)[k], **entry[k])
+             launches=path_of[k][k], **entry[k])
         for k, src, rep in KERNELS]}
+    record["main_path_runs"] = main
     record["launches_by_path"] = paths
+    record["launches_counted_as"] = (
+        "kernels line: the profiler's kernel records of each main path's "
+        "own run (a graph replay, through detect); launches_by_path: the "
+        "wrappers' counts of eager launches (a program's warm-up), "
+        "captures and replays not counted")
     record["photo_scene"] = dict(survivors=photo_surv,
                                  jax_survivors=JAX_PHOTO_SURVIVORS,
                                  unfused_variance=unfused,
@@ -1801,6 +2270,7 @@ def main() -> int:
     record["roc"] = roc
     record["float64"] = f64
     record["scale_cascade"] = sc
+    record["programs"] = programs
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

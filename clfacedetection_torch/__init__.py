@@ -7,7 +7,9 @@ dense front, ordered compaction, the tail2 cascade walk, the v1 all-nodes
 tail and its votes and stage sums, behind plain PyTorch twins that run on
 the CPU), the scale-cascade detector (plain PyTorch over the scales, with
 Canny pruning and find-biggest-object; its compactions run the
-compaction kernel), and the numpy golden path.  A sixth kernel, the
+compaction kernel), and the numpy golden path.  On the card each
+float32 path runs as a captured CUDA graph (``runtime/program.py``), one
+per batch size or per scale loop at its current cap.  A sixth kernel, the
 op-chain microbenchmark, serves the tool ``tools/mb_vpu3.py``.  Imports
 torch and numpy, never jax.
 """
@@ -17,11 +19,11 @@ __version__ = "0.1.0"
 from .api import CascadeClassifier, WeightedRect, detect_objects
 from .detect import DetectionResult, PyramidDetector, ScaleCascadeDetector
 from .models import CascadeSpec, load_cascade
-from .runtime import BatchedPyramidDetector
+from .runtime import BatchedPyramidDetector, MultiCascadeBatchedDetector
 
 __all__ = [
     "CascadeClassifier", "WeightedRect", "detect_objects",
     "DetectionResult", "PyramidDetector", "ScaleCascadeDetector",
-    "BatchedPyramidDetector",
+    "BatchedPyramidDetector", "MultiCascadeBatchedDetector",
     "CascadeSpec", "load_cascade", "__version__",
 ]

@@ -3,7 +3,10 @@
 Port of ``clfacedetection_tpu/api.py``: ``CascadeClassifier`` (the
 ``cvHaarDetectObjects`` parameter surface) and ``detect_objects`` (the
 reference's ``clodDetectObjects``, clod.h:61-81).  Detectors are built
-per (mode, frame shape, parameters) and cached.
+per (mode, frame shape, parameters) and cached, and each keeps its
+programs (``runtime/program.py``): in float32 on the card a call replays
+the detector's CUDA graph (captured at its first call, and again when a
+survivor cap grows); float64 and the CPU run the eager pipeline.
 
 Both pyramid modes run every cascade of the zoo: scale-image
 (``PyramidDetector``, with every ``clod_flags`` strategy) and

@@ -30,12 +30,17 @@ one fixed tree of additions (``_fold``), the same on the card and the
 CPU and in the front and the tail; the JAX package sums the front in
 classifier order and the tail with ``jnp.sum``, so float32 is held to
 the docs/PARITY.md bounds and float64 box for box.  Nothing reads the
-host inside the scale loop.
+host from the frame to the packed array, so in float32 on the card
+``candidates`` runs the whole of it, prep and Canny included, as one
+captured CUDA graph per cap (``runtime/program.py``; JAX's
+``_jit_scales``).  find-biggest-object stays eager: it reads every
+scale back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -61,6 +66,9 @@ STRATEGIES = (None, "per_stage", "block", "direct")
 # memory one takes on it
 _CPU_GATHER_ELEMS = 1 << 24
 _CARD_GATHER_SHARE = 128
+# Canny's hysteresis steps in the frame's program at first; 4x while a
+# frame's edges do not reach the fixpoint
+_CANNY_STEPS = 64
 
 
 def default_device() -> torch.device:
@@ -278,6 +286,8 @@ class ScaleCascadeDetector:
         self.n_stages = c.spec.n_stages
         self.front_k = max(1, min(int(front_stages), self.n_stages))
         self._fbo_acap: Optional[int] = None
+        self._program = None
+        self._canny_steps = _CANNY_STEPS
         if self.n_scales == 0:
             return
 
@@ -649,60 +659,124 @@ class ScaleCascadeDetector:
             cur_n = ncap
 
     # ------------------------------------------------------------- host
-    def put(self, gray) -> torch.Tensor:
-        """uint8 [H, W] -> a tensor on the detector's device."""
+    def frame(self, gray) -> torch.Tensor:
+        """uint8 [H, W] -> a tensor where it lies (numpy: on the host),
+        checked against the frame shape."""
         t = gray if isinstance(gray, torch.Tensor) else \
             torch.as_tensor(np.asarray(gray, np.uint8))
         if t.dtype != torch.uint8 or tuple(t.shape) != (self.H, self.W):
             raise ValueError(f"expected a uint8 frame of shape "
                              f"{(self.H, self.W)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        return t.to(self.device).contiguous()
+        return t.contiguous()
 
-    def _prep(self, gray: torch.Tensor):
+    def put(self, gray) -> torch.Tensor:
+        """uint8 [H, W] -> a tensor on the detector's device."""
+        return self.frame(gray).to(self.device)
+
+    def _prep(self, gray: torch.Tensor, canny_steps: Optional[int] = None):
         """The frame's integral planes, each int32 [H+1, W+1]: ``sum``,
         ``sq_hi``/``sq_lo``, ``tilted`` (tilted cascades) and ``canny``
-        (the integral of ``canny(gray, 0, 50)``, with Canny pruning)."""
+        (the integral of ``canny(gray, 0, 50)``, with Canny pruning).
+        ``canny_steps`` bounds Canny's hysteresis for a graph and adds
+        ``canny_done``, its fixpoint flag (``ops.canny.canny``)."""
         ii = integral_images(gray, with_tilted=self.compiled.has_tilted)
         planes = dict(sum=ii.sum, sq_hi=ii.sq_hi, sq_lo=ii.sq_lo,
                       tilted=ii.tilted)
         if self.do_canny_pruning:
-            planes["canny"] = integral_2d(canny(gray, 0, 50).to(torch.int32))
+            if canny_steps is None:
+                edges = canny(gray, 0, 50)
+            else:
+                edges, planes["canny_done"] = canny(gray, 0, 50, canny_steps)
+            planes["canny"] = integral_2d(edges.to(torch.int32))
         return planes
 
-    def _pack(self, outs, cap: int, acap: int):
-        """Every scale's accepted windows in one int32 array
+    def _pack_device(self, outs, cap: int, acap: int) -> Dict[str,
+                                                               torch.Tensor]:
+        """Every scale's accepted windows in one int32 array ``packed``
         [S, 2 + 2*acap] (n_surv, n_acc, rows, columns) through one
-        compaction launch, copied to the host at once; and the scales'
-        full (sy, sx, ok) on the device, for when a scale accepted more
-        than ``acap``."""
+        compaction launch; and the scales' full ``sy``, ``sx``, ``ok``,
+        for when a scale accepted more than ``acap``.  No host read."""
         sy, sx, ok = (torch.stack([o[i] for o in outs]) for i in range(3))
         n_surv = torch.cat([o[3] for o in outs])
         acc, n_acc = compact(ok, acap)
         sel = torch.where(acc < cap, acc, 0).long()
         packed = torch.cat([n_surv[:, None], n_acc[:, None],
                             sy.gather(1, sel), sx.gather(1, sel)], dim=1)
-        return packed.cpu().numpy(), (sy, sx, ok)
+        return dict(packed=packed, sy=sy, sx=sx, ok=ok)
 
-    def _detect_device(self, planes, cap: int):
-        return self._pack([self._per_scale(planes, k, cap)
-                           for k in range(self.n_scales)],
-                          cap, min(cap, ACCEPT_CAP))
+    def _pack(self, outs, cap: int, acap: int):
+        """``_pack_device``, its packed array copied to the host:
+        (packed, (sy, sx, ok))."""
+        d = self._pack_device(outs, cap, acap)
+        return d["packed"].cpu().numpy(), (d["sy"], d["sx"], d["ok"])
+
+    def _scales_device(self, planes, cap: int) -> Dict[str, torch.Tensor]:
+        return self._pack_device([self._per_scale(planes, k, cap)
+                                  for k in range(self.n_scales)],
+                                 cap, min(cap, ACCEPT_CAP))
+
+    def _frame_device(self, gray: torch.Tensor, cap: int,
+                      canny_steps: int) -> Dict[str, torch.Tensor]:
+        """The whole frame on the device, from the uint8 frame to the
+        packed array, with no host read: prep (Canny's hysteresis bounded
+        to ``canny_steps``), every scale, the pack.  The function the
+        program captures (JAX's ``_jit_scales``)."""
+        planes = self._prep(gray, canny_steps)
+        out = self._scales_device(planes, cap)
+        if self.do_canny_pruning:
+            out["canny_done"] = planes["canny_done"]
+        return out
+
+    def program(self):
+        """The frame's program at the current cap and Canny step count:
+        a CUDA graph in float32 on the card, else the eager function.
+        One is kept, at the latest key; a new key releases the old one
+        once its replays are done."""
+        # imported here: the runtime package imports the detect package
+        from ..runtime.program import Program
+        key = (self.cap, self._canny_steps)
+        p = self._program
+        if p is not None and p.key == key:
+            return p
+        self._program = None
+        if p is not None:
+            p.release()
+        names = ("packed", "canny_done") if self.do_canny_pruning \
+            else ("packed",)
+        self._program = Program(
+            functools.partial(self._frame_device, cap=self.cap,
+                              canny_steps=self._canny_steps),
+            (self.H, self.W), self.device, readback=names, key=key,
+            graph=(self.device.type == "cuda"
+                   and self.dtype == torch.float32))
+        return self._program
 
     def candidates(self, gray) -> Tuple[np.ndarray, bool]:
         """Raw candidates (x, y, w, h) in the scan order (scales ascending,
         rows then columns) and whether a survivor cap overflowed.  ONE
-        packed readback after the last scale; the cap grows 4x and the
-        frame runs again while a scale overflows it, up to the lattice
-        size."""
+        packed readback after the last scale, from the program; the cap
+        grows 4x and the frame runs again while a scale overflows it, up
+        to the lattice size (and Canny's step count 4x while its
+        hysteresis did not reach the fixpoint).  A scale that accepted
+        more windows than the packed array holds runs the frame again
+        eagerly for the full arrays."""
         if self.n_scales == 0:
             return np.zeros((0, 4), np.int32), False
-        planes = self._prep(self.put(gray))
+        frame = self.frame(gray)
         lattice = self.max_y * self.max_x
-        packed, full = self._detect_device(planes, self.cap)
-        while (packed[:, 0] > self.cap).any() and self.cap < lattice:
-            self.cap = min(self.cap * 4, lattice)
-            packed, full = self._detect_device(planes, self.cap)
+        while True:
+            prog = self.program()
+            h = prog.run(frame)
+            out = prog.read(h)
+            if self.do_canny_pruning and not out["canny_done"][0]:
+                self._canny_steps *= 4
+                continue
+            packed = out["packed"]
+            if (packed[:, 0] > self.cap).any() and self.cap < lattice:
+                self.cap = min(self.cap * 4, lattice)
+                continue
+            break
         overflow = bool((packed[:, 0] > self.cap).any())
         acap = (packed.shape[1] - 2) // 2
         host = None
@@ -716,7 +790,10 @@ class ScaleCascadeDetector:
                 sx = packed[k, 2 + acap:2 + acap + na]
             else:
                 if host is None:
-                    host = [t.cpu().numpy() for t in full]
+                    full = self._frame_device(self.put(frame), self.cap,
+                                              self._canny_steps)
+                    host = [full[n].cpu().numpy() for n in ("sy", "sx",
+                                                            "ok")]
                 m = host[2][k]
                 sy, sx = host[0][k][m], host[1][k][m]
             boxes.append(np.stack([sx, sy, np.full_like(sx, self.win_w[k]),

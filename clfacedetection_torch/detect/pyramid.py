@@ -13,7 +13,10 @@ Per batch of frames the device pipeline is
     -> accept compaction (kernel) -> ONE packed int32 readback
        [n_surv, n_acc, acc_y[acap], acc_x[acap]] per frame
 
-with no host synchronisation inside it.  Three survivor tails, as in the
+with no host synchronisation inside it.  On the card the float32 pipeline
+runs as a captured program (``runtime/program.py``): a CUDA graph per
+batch size at the current cap, replayed, its packed output copied to a
+pinned host slot (JAX's ``_jit_pipeline``).  Three survivor tails, as in the
 JAX package (``pyramid.py:427-481``): tail2 walks the cascade inside its
 kernel with early exit and serves stump cascades with upright features,
 sequential stages and windows up to 31 px wide; the v1 tail computes
@@ -26,12 +29,15 @@ product instead (JAX's XLA tail; ``ops/stencil.py``), then the same
 ``tail_rows``.  With ``output_levels`` every frame also packs its ROC
 windows (exit stage and stage sum, tempcv.cpp:1084-1095) into a second
 readback.  float64 runs the plain versions, on the card too: the
-kernels are float32, as the JAX package's Pallas path is.
+kernels are float32, as the JAX package's Pallas path is.  float64 and
+the plain path stay eager: their plain versions copy tables from the
+host to the card on every call, which a graph cannot hold.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -202,7 +208,10 @@ class PyramidDetector:
     ``"direct"`` the stencil product.  ``output_levels`` adds the ROC
     output (``candidates_with_levels``); for sequential cascades it lowers
     ``front_k`` to ``n_stages - 4``, so that every window the ROC reports
-    reaches the tail (JAX ``pyramid.py:370-376``)."""
+    reaches the tail (JAX ``pyramid.py:370-376``).  ``candidates``,
+    ``candidates_with_levels`` and ``detect`` run the pipeline through
+    :meth:`program`: in float32 on the card a CUDA graph, else the eager
+    function."""
 
     def __init__(self, spec: CascadeSpec, image_shape: Tuple[int, int],
                  scale_factor: float = 1.1,
@@ -252,6 +261,9 @@ class PyramidDetector:
         self.plan = PyramidPlan.build(spec, image_shape, scale_factor,
                                       min_size, max_size)
         self.n_levels = len(self.plan.levels)
+        # ONE program (its graph's memory pool held at its peak), for the
+        # batch size and cap it was made for
+        self._program = None
         if self.n_levels == 0:
             return
 
@@ -396,9 +408,9 @@ class PyramidDetector:
             del vals
         return torch.cat(out, dim=1)
 
-    def put(self, frames) -> torch.Tensor:
-        """[B, H, W] (or [H, W]) uint8 -> a [B, H, W] tensor on the
-        detector's device."""
+    def frames(self, frames) -> torch.Tensor:
+        """[B, H, W] (or [H, W]) uint8 -> a [B, H, W] tensor where it lies
+        (a numpy array: on the host), checked against the frame shape."""
         t = torch.as_tensor(np.asarray(frames, np.uint8)) \
             if not isinstance(frames, torch.Tensor) else frames
         if t.dtype != torch.uint8:
@@ -408,16 +420,58 @@ class PyramidDetector:
         if tuple(t.shape[1:]) != (self.H, self.W):
             raise ValueError(f"frames of shape {tuple(t.shape)} do not match "
                              f"the detector's {(self.H, self.W)}")
-        return t.to(self.device).contiguous()
+        return t.contiguous()
 
-    def readback(self, dev: Dict[str, torch.Tensor], cap: int,
-                 ) -> List[Tuple[np.ndarray, bool]]:
-        """(candidates, overflow) per frame from a pipeline result: ONE
-        packed readback, plus a second only when a frame accepted more
-        than ``ACCEPT_CAP`` windows (pyramid.py:1239-1243)."""
-        packed = dev["packed"].cpu().numpy()
+    def put(self, frames) -> torch.Tensor:
+        """[B, H, W] (or [H, W]) uint8 -> a [B, H, W] tensor on the
+        detector's device."""
+        return self.frames(frames).to(self.device)
+
+    def program(self, B: int, cap: int):
+        """The pipeline for ``B`` frames at ``cap`` survivor slots as a
+        ``runtime.program.Program`` (JAX's ``_jit_pipeline``): a CUDA graph
+        in float32 on the card, else the eager function.  The detector
+        keeps one program: another batch size or cap releases the old one
+        once its replays are done, so that one graph's pool at a time
+        holds memory."""
+        # imported here: the runtime package imports this module
+        from ..runtime.program import Program
+        p = self._program
+        if p is not None and p.key == (B, cap):
+            return p
+        self._program = None
+        if p is not None:
+            p.release()
+        names = ("packed", "packed_roc") if self.output_levels \
+            else ("packed",)
+        self._program = Program(
+            functools.partial(self._detect_device, cap=cap),
+            (B, self.H, self.W), self.device,
+            graph=(self.device.type == "cuda"
+                   and self.dtype == torch.float32),
+            readback=names, key=(B, cap))
+        return self._program
+
+    def readback(self, res, cap: int) -> List[Tuple[np.ndarray, bool]]:
+        """(candidates, overflow) per frame from a run: a program's
+        ``Handle`` (its packed output, read from the pinned slot) or an
+        eager output dict.  A frame that accepted more than ``ACCEPT_CAP``
+        windows needs the full arrays (pyramid.py:1239-1243): an eager dict
+        holds them; a handle's batch runs again eagerly, since a later
+        replay may have overwritten the graph's."""
+        if isinstance(res, dict):
+            return self.unpack(res["packed"].cpu().numpy(), cap, lambda: res)
+        return self.unpack(res.program.read(res)["packed"], cap,
+                           lambda: self._detect_device(self.put(res.frames),
+                                                       cap))
+
+    def unpack(self, packed: np.ndarray, cap: int, full,
+               ) -> List[Tuple[np.ndarray, bool]]:
+        """(candidates, overflow) per frame from the packed readback;
+        ``full()`` gives the outputs with ``surv_idx`` and ``ok`` for a
+        frame that accepted more than the packed array holds."""
         acap = (packed.shape[1] - 2) // 2
-        full = None
+        host = None
         out = []
         for b, p in enumerate(packed):
             overflow = bool(p[0] > cap)
@@ -425,15 +479,29 @@ class PyramidDetector:
             if n_acc <= acap:
                 ay, ax = p[2:2 + n_acc], p[2 + acap:2 + acap + n_acc]
             else:
-                if full is None:
-                    full = (dev["surv_idx"].cpu().numpy(),
+                if host is None:
+                    dev = full()
+                    host = (dev["surv_idx"].cpu().numpy(),
                             dev["ok"].cpu().numpy())
-                flat = full[0][b][full[1][b]]
+                flat = host[0][b][host[1][b]]
                 ay, ax = flat // self.wv, flat % self.wv
             cand = (self.plan.boxes_for(ay, ax) if len(ay)
                     else np.zeros((0, 4), np.int32))
             out.append((cand, overflow))
         return out
+
+    def run_regrow(self, frames: torch.Tensor,
+                   ) -> List[Tuple[np.ndarray, bool]]:
+        """(candidates, overflow) per frame of a [B, H, W] batch, through
+        the program at the current cap; the cap grows 4x and the batch
+        runs again while a frame overflows it."""
+        B = frames.shape[0]
+        res = self.readback(self.program(B, self.cap).run(frames), self.cap)
+        while any(o for _, o in res) and self.cap < self.n_visit:
+            self.cap = min(self.cap * 4, self.n_visit)
+            res = self.readback(self.program(B, self.cap).run(frames),
+                                self.cap)
+        return res
 
     # ------------------------------------------------------------------
     def candidates(self, gray) -> Tuple[np.ndarray, bool]:
@@ -441,38 +509,36 @@ class PyramidDetector:
         whether the survivor cap overflowed."""
         if self.n_levels == 0:
             return np.zeros((0, 4), np.int32), False
-        frames = self.put(gray)
+        frames = self.frames(gray)
         if frames.shape[0] != 1:
             raise ValueError("candidates takes one frame; batch with "
                              "BatchedPyramidDetector")
-        res = self.readback(self._detect_device(frames, self.cap), self.cap)
-        while res[0][1] and self.cap < self.n_visit:
-            self.cap = min(self.cap * 4, self.n_visit)
-            res = self.readback(self._detect_device(frames, self.cap),
-                                self.cap)
-        return res[0]
+        return self.run_regrow(frames)[0]
 
     def candidates_with_levels(self, gray):
         """(boxes, reject_levels, level_weights, overflow): the ROC output
         of one frame (tempcv.cpp:1084-1095), with the survivor cap regrown
         as in ``candidates``; needs ``output_levels=True``.  ONE packed
-        readback, plus a second only when more than ``ACCEPT_CAP``
-        windows qualify (pyramid.py:1246-1285)."""
+        readback; when more than ``ACCEPT_CAP`` windows qualify the frame
+        runs again eagerly for the full arrays (pyramid.py:1246-1285)."""
         if not self.output_levels:
             raise ValueError("build the detector with output_levels=True")
         empty = (np.zeros((0, 4), np.int32), np.zeros(0, np.int32),
                  np.zeros(0, np.float64))
         if self.n_levels == 0:
             return empty + (False,)
-        frames = self.put(gray)
+        frames = self.frames(gray)
         if frames.shape[0] != 1:
             raise ValueError("candidates_with_levels takes one frame")
-        dev = self._detect_device(frames, self.cap)
-        pr = dev["packed_roc"][0].cpu().numpy()
+
+        def roc():
+            h = self.program(1, self.cap).run(frames)
+            return h.program.read(h)["packed_roc"][0]
+
+        pr = roc()
         while pr[0] > self.cap and self.cap < self.n_visit:
             self.cap = min(self.cap * 4, self.n_visit)
-            dev = self._detect_device(frames, self.cap)
-            pr = dev["packed_roc"][0].cpu().numpy()
+            pr = roc()
         overflow = bool(pr[0] > self.cap)
         acap = (len(pr) - 2) // 4
         n_roc = int(pr[1])
@@ -484,6 +550,7 @@ class PyramidDetector:
             lvl = pr[2 + 2 * acap:2 + 2 * acap + n_roc].astype(np.int32)
             wgt = pr[2 + 3 * acap:2 + 3 * acap + n_roc].astype(np.float64)
         else:
+            dev = self._detect_device(self.put(frames), self.cap)
             ok = dev["ok_roc"][0].cpu().numpy()
             flat = dev["surv_idx"][0].cpu().numpy()[ok].astype(np.int64)
             rows = dev["rows"][0].cpu().numpy()[ok]

@@ -7,7 +7,9 @@ into one shared library with a plain C interface in
 sources and flags; ``ctypes`` loads it.  ``ptxas`` reports each kernel's
 registers and shared memory into ``<library>.log`` (``build_log()``).
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``.
+``cudaGetLastError()``.  Each op's wrapper counts its launches
+(``count``): a launch that runs on the card, never one that a CUDA graph
+capture only records; a graph's replays are not the wrapper's to count.
 
 Flags: ``sm_90a`` (Hopper); ``-fmad=false`` and no fast-math, so that no
 multiply-add is contracted behind the source's back (the kernels spell
@@ -25,7 +27,7 @@ import subprocess
 import threading
 from typing import Optional
 
-__all__ = ["NVCC_FLAGS", "lib", "check", "build_log", "sass"]
+__all__ = ["NVCC_FLAGS", "lib", "check", "count", "build_log", "sass"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -144,3 +146,12 @@ def check(name: str, err: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel (its ``launches``), unless
+    the current stream is capturing a CUDA graph: the capture records the
+    launch and runs nothing."""
+    import torch
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1

@@ -19,10 +19,14 @@ and prunes the windows whose edge density is too low (tempcv.cpp:1339-1343,
 ``canny_np`` (numpy) is the specification; ``canny`` (torch, on the
 tensor's device) runs ``GROW_STEPS`` dilation steps between two
 convergence checks, so the host waits once per block of steps, not once
-per step.  Both are integer arithmetic and bit-equal.
+per step; or, for a CUDA graph, a fixed number of steps and a flag on the
+device that says whether they reached the fixpoint.  Both are exact and
+bit-equal.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -82,8 +86,17 @@ def canny_np(img: np.ndarray, low: float, high: float) -> np.ndarray:
         edges = new
 
 
-def canny(img: torch.Tensor, low: float, high: float) -> torch.Tensor:
-    """Canny of a uint8 (H, W) tensor on its device; uint8 {0, 255}."""
+def canny(img: torch.Tensor, low: float, high: float,
+          steps: Optional[int] = None):
+    """Canny of a uint8 (H, W) tensor on its device; uint8 {0, 255}.
+
+    A hysteresis step is a 3x3 max-pool of the edge map (0 or 1, so exact)
+    masked by the candidates.  By default the steps run in blocks of
+    ``GROW_STEPS`` until one changes nothing.  With ``steps``, exactly that
+    many run and the host reads nothing, as a CUDA graph needs: the result
+    is then ``(edges, done)``, ``done`` an int32 [1] on the device that is
+    1 when one more step would change nothing (the fixpoint is reached)
+    and 0 when the caller must run more steps."""
     H, W = img.shape
     dev = img.device
     # replicated border: clamp the row and column indices
@@ -117,17 +130,22 @@ def canny(img: torch.Tensor, low: float, high: float) -> torch.Tensor:
     okd = (mag > d1) & (mag > d2)
     cand = (mag > low_i) & torch.where(horiz, okh, torch.where(vert, okv,
                                                                okd))
-    # the edges live in the interior of a zero-bordered plane, so every
-    # step reads its eight shifted neighbours as views
-    ep = torch.zeros((H + 2, W + 2), dtype=torch.bool, device=dev)
-    edges = ep[1:H + 1, 1:W + 1]
-    edges.copy_(cand & (mag > high_i))
-    while True:
-        before = edges.clone()
-        for _ in range(GROW_STEPS):
-            grown = torch.zeros_like(cand)
-            for di, dj in _NEIGHBOURS:
-                grown |= ep[1 + di:1 + di + H, 1 + dj:1 + dj + W]
-            edges |= grown & cand
-        if torch.equal(edges, before):
-            return edges.to(torch.uint8) * 255
+    # the edges as a 0/1 float map: a step's 8-neighbour OR is a max-pool
+    # (out-of-image neighbours pad as -inf and never win over the centre)
+    cand_f = cand.to(torch.float32)[None, None]
+    edges = (cand & (mag > high_i)).to(torch.float32)[None, None]
+
+    def grow(e):
+        return F.max_pool2d(e, 3, stride=1, padding=1) * cand_f
+
+    if steps is None:
+        while True:
+            before = edges
+            for _ in range(GROW_STEPS):
+                edges = grow(edges)
+            if torch.equal(edges, before):
+                return (edges[0, 0] > 0).to(torch.uint8) * 255
+    for _ in range(int(steps)):
+        edges = grow(edges)
+    done = torch.eq(grow(edges), edges).all().to(torch.int32).reshape(1)
+    return (edges[0, 0] > 0).to(torch.uint8) * 255, done

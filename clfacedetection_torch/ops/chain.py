@@ -121,7 +121,7 @@ def chain(x: torch.Tensor, body: str, trips: int,
         x.data_ptr(), out.data_ptr(), gh, gw, _TRIPS[body][1], int(trips),
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check("clfd_chain", err)
-    chain.launches += 1
+    kernels.count(chain)
     return out
 
 

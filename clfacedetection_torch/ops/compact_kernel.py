@@ -110,7 +110,7 @@ def compact(flags: torch.Tensor, cap: int):
         flags.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         total.data_ptr(), n, -(-n // TILE), cap, B, vec, stream)
     kernels.check("clfd_compact", err)
-    compact.launches += 1
+    kernels.count(compact)
     return out, total
 
 

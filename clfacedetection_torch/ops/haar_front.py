@@ -253,7 +253,7 @@ def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
         ctypes.c_float(float(np.float32(table.inv_area))),
         torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_front", err)
-    haar_front.launches += 1
+    kernels.count(haar_front)
     return front, vnf
 
 

@@ -134,7 +134,7 @@ def haar_tail(sum_: torch.Tensor, tilted: Optional[torch.Tensor],
         wp, cap, nn, ph, pw,
         torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_tail", err)
-    haar_tail.launches += 1
+    kernels.count(haar_tail)
     return out
 
 

@@ -124,7 +124,7 @@ def haar_tail2(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
         table.max_dy + 1, table.max_dx + 1, max_cnt,
         torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_tail2", err)
-    haar_tail2.launches += 1
+    kernels.count(haar_tail2)
     return out
 
 

@@ -69,8 +69,11 @@ def window_patches(plane: torch.Tensor, surv_idx: torch.Tensor, hv: int,
     idx = torch.where(valid, surv_idx, 0).long()
     y = torch.div(idx, wv, rounding_mode="floor")
     base = y * wp + (idx - y * wv)                        # [B, cap]
-    dy, dx = np.meshgrid(np.arange(ph), np.arange(pw), indexing="ij")
-    off = torch.from_numpy((dy * wp + dx).reshape(-1)).to(plane.device)
+    # the patch offsets made on the device: no copy from the host, which
+    # a CUDA graph could not hold
+    dev = plane.device
+    off = (torch.arange(ph, device=dev)[:, None] * wp
+           + torch.arange(pw, device=dev)[None, :]).reshape(-1)
     g = (base[:, :, None] + off).reshape(B, -1)
     raw = plane.reshape(B, -1).gather(1, g).reshape(B, cap, ph, pw)
     r = raw - raw[:, :, :1, :1]

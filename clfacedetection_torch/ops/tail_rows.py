@@ -226,7 +226,7 @@ def tail_rows(values: torch.Tensor, svnf: torch.Tensor,
         len(paths) if paths is not None else 0, n_leaves,
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check("clfd_tail_rows", err)
-    tail_rows.launches += 1
+    kernels.count(tail_rows)
     return out
 
 

@@ -1,3 +1,5 @@
-from .batch import BatchedPyramidDetector
+from .batch import BatchedPyramidDetector, MultiCascadeBatchedDetector
+from .program import Handle, Program
 
-__all__ = ["BatchedPyramidDetector"]
+__all__ = ["BatchedPyramidDetector", "MultiCascadeBatchedDetector",
+           "Handle", "Program"]

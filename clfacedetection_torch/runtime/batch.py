@@ -1,11 +1,22 @@
 """Batched and streamed detection on one device.
 
-Port of ``BatchedPyramidDetector`` (``clfacedetection_tpu/runtime/
-batch.py``) without a mesh: the kernels take a leading batch dimension,
-so a batch is one pass of the pipeline and batch 1 is the single-frame
-path.  ``detect_stream`` keeps ``depth`` batches in flight and drains
-them, in order, on ONE worker thread, so the readback and the host-side
-grouping overlap the device work of later batches.
+Port of ``clfacedetection_tpu/runtime/batch.py`` without a mesh:
+``BatchedPyramidDetector`` and ``MultiCascadeBatchedDetector``.  A batch
+is one run of a program (``runtime/program.py``: on the card a CUDA graph
+of the whole pipeline, on the CPU the eager function); the kernels take a
+leading batch dimension.  A batch's handle carries the program it ran
+on, and the program's key the batch size and cap(s) it was made for
+(JAX's ``(program, cap)`` snapshot, ``batch.py:96-103``), so that a batch
+is judged against the cap it ran with: a later batch may grow the cap
+while this one is in flight.  Each detector keeps one program at a time.
+
+``detect_stream`` keeps ``depth`` batches in flight.  With ``threaded``
+(the default) ONE worker thread drains them in order: it waits for a
+batch's pinned readback and groups its candidates, while this thread
+uploads and replays later batches.  The worker never launches work on the
+card: a batch that overflowed its cap, or that accepted more windows than
+the packed readback holds, comes back flagged, and the enqueue thread runs
+it again through ``detect``, which captures the program at the grown cap.
 """
 
 from __future__ import annotations
@@ -20,15 +31,66 @@ import torch
 from ..detect.detector import DetectionResult
 from ..detect.pyramid import PyramidDetector, finish
 from ..models.spec import CascadeSpec
+from .program import Program
 
-__all__ = ["BatchedPyramidDetector"]
+__all__ = ["BatchedPyramidDetector", "MultiCascadeBatchedDetector"]
+
+
+def _empty_results(n: int) -> List[DetectionResult]:
+    empty = np.zeros((0, 4), np.int32)
+    return [DetectionResult(empty, np.zeros(0, np.int32), empty, False)
+            for _ in range(n)]
+
+
+def _runs_again(packed: np.ndarray, cap: int, n_visit: int) -> bool:
+    """Whether a batch's packed readback [B, 2 + 2*acap] must run again:
+    a frame overflowed a cap that can still grow, or accepted more windows
+    than the packed array holds."""
+    acap = (packed.shape[1] - 2) // 2
+    return bool(((packed[:, 0] > cap).any() and cap < n_visit)
+                or (packed[:, 1] > acap).any())
+
+
+def _stream(det, batches, min_neighbors: int, depth: int, threaded: bool):
+    """The pipelined loop of both detectors.  ``det._enqueue(frames)`` runs
+    a batch and returns its handle; ``det._drain(frames, handle,
+    min_neighbors)`` gives the batch's results, or None when the batch
+    must run again through ``det.detect`` on this thread."""
+    def take(frames, res):
+        return det.detect(frames, min_neighbors) if res is None else res
+
+    q = deque()
+    if not threaded:
+        for frames in batches:
+            q.append((frames, det._enqueue(frames)))
+            if len(q) >= depth:
+                frames, ran = q.popleft()
+                yield take(frames, det._drain(frames, ran, min_neighbors))
+        while q:
+            frames, ran = q.popleft()
+            yield take(frames, det._drain(frames, ran, min_neighbors))
+        return
+    ex = ThreadPoolExecutor(1)   # ONE worker: the drains stay ordered
+    try:
+        for frames in batches:
+            ran = det._enqueue(frames)
+            q.append((frames, ex.submit(det._drain, frames, ran,
+                                        min_neighbors)))
+            if len(q) >= depth:
+                frames, fut = q.popleft()
+                yield take(frames, fut.result())
+        while q:
+            frames, fut = q.popleft()
+            yield take(frames, fut.result())
+    finally:
+        ex.shutdown(wait=True)
 
 
 class BatchedPyramidDetector:
     """Fixed-batch pyramid detector on one device; ``knobs`` go to
     :class:`PyramidDetector` (``device``, ``front_stages``, ``cap``,
-    ``strategy``...).  A batch is one pass of the pipeline whichever tail
-    the cascade takes."""
+    ``strategy``...).  A batch is one run of the detector's program for
+    its size at the current cap (``PyramidDetector.program``)."""
 
     def __init__(self, spec: CascadeSpec, image_shape: Tuple[int, int],
                  batch: int, **knobs):
@@ -39,57 +101,184 @@ class BatchedPyramidDetector:
         """Move a [B, H, W] uint8 batch to the detector's device."""
         return self.det.put(frames)
 
-    def run_device(self, frames: torch.Tensor, cap: Optional[int] = None):
-        """The device pipeline for a batch already on the device (no host
-        synchronisation; for timing)."""
-        return self.det._detect_device(frames, self.det.cap if cap is None
-                                       else cap)
+    def run_device(self, frames):
+        """Run the program on a batch at the current cap (no host
+        synchronisation); returns its ``Handle``."""
+        frames = self.det.frames(frames)
+        return self.det.program(frames.shape[0], self.det.cap).run(frames)
 
     def detect(self, frames, min_neighbors: int = 3) -> List[DetectionResult]:
         """Full batched detection, with survivor-cap regrowth."""
         det = self.det
         if det.n_levels == 0:
-            empty = np.zeros((0, 4), np.int32)
-            return [DetectionResult(empty, np.zeros(0, np.int32), empty,
-                                    False) for _ in range(len(frames))]
-        dev_frames = self.put(frames)
-        res = det.readback(self.run_device(dev_frames, det.cap), det.cap)
-        while any(o for _, o in res) and det.cap < det.n_visit:
-            det.cap = min(det.cap * 4, det.n_visit)
-            res = det.readback(self.run_device(dev_frames, det.cap), det.cap)
-        return [finish(c, o, min_neighbors) for c, o in res]
+            return _empty_results(len(frames))
+        return [finish(c, o, min_neighbors)
+                for c, o in det.run_regrow(det.frames(frames))]
 
     def detect_stream(self, batches, min_neighbors: int = 3,
-                      depth: int = 2):
+                      depth: int = 2, threaded: bool = True):
         """Pipelined detection over an iterable of [B, H, W] batches;
-        yields one ``List[DetectionResult]`` per batch, in order.
-
-        The cap is read ONCE per batch at enqueue and travels with it: a
-        later batch may overflow and grow ``det.cap`` while this one is in
-        flight, and this batch's result must be judged against the cap it
-        ran with, or a truncated result would pass as complete.  A batch
-        that overflowed is re-run through :meth:`detect`."""
+        yields one ``List[DetectionResult]`` per batch, in order.  The cap
+        travels with its batch (see the module's docstring); a batch that
+        overflowed it runs again through :meth:`detect`."""
         if self.det.n_levels == 0:
             for frames in batches:
                 yield self.detect(frames, min_neighbors)
             return
-        q = deque()
-        ex = ThreadPoolExecutor(1)   # ONE worker: drains stay ordered and
-        try:                         # cap regrowth is serialised
-            for frames in batches:
-                cap = self.det.cap
-                dev = self.run_device(self.put(frames), cap)
-                q.append(ex.submit(self._drain, frames, dev, cap,
-                                   min_neighbors))
-                if len(q) >= depth:
-                    yield q.popleft().result()
-            while q:
-                yield q.popleft().result()
-        finally:
-            ex.shutdown(wait=True)
+        yield from _stream(self, batches, min_neighbors, depth, threaded)
 
-    def _drain(self, frames, dev, cap, min_neighbors):
-        res = self.det.readback(dev, cap)
-        if any(o for _, o in res) and cap < self.det.n_visit:
-            return self.detect(frames, min_neighbors)
-        return [finish(c, o, min_neighbors) for c, o in res]
+    _enqueue = run_device
+
+    def _drain(self, frames, h, min_neighbors):
+        cap = h.program.key[1]
+        packed = h.program.read(h)["packed"]
+        if _runs_again(packed, cap, self.det.n_visit):
+            return None
+        return [finish(c, o, min_neighbors)
+                for c, o in self.det.unpack(packed, cap, None)]
+
+
+class MultiCascadeBatchedDetector:
+    """Several cascades over one frame batch in ONE program.
+
+    BASELINE config 5 (batched video with profileface + upperbody +
+    fullbody): the reference would run ``cvHaarDetectObjects`` once per
+    cascade per frame (main.cpp:72-97); here one CUDA graph holds all K
+    cascades' pipelines over the shared [B, H, W] upload and stacks their
+    packed outputs into one [B, K, Wmax] array, so that a batch costs ONE
+    copy to the host.  Each cascade keeps its own :class:`PyramidDetector`
+    (window sizes differ, so canvases, scan lattices and survivor caps are
+    per cascade); when one overflows, only its cap grows, and the program
+    is captured again.  A cascade with no pyramid level at this frame size
+    gives empty results."""
+
+    def __init__(self, specs: List[CascadeSpec],
+                 image_shape: Tuple[int, int], batch: int, **knobs):
+        if not specs:
+            raise ValueError("need at least one cascade")
+        self.batch = int(batch)
+        # the subs hold each cascade's state (plan, cap); their own
+        # programs are never made: the fused program below is the only one
+        self.subs = [PyramidDetector(spec, image_shape, **knobs)
+                     for spec in specs]
+        self.names = [getattr(s, "name", None) or f"cascade{i}"
+                      for i, s in enumerate(specs)]
+        self._active = [k for k, s in enumerate(self.subs)
+                        if s.n_levels > 0]
+        self._program: Optional[Program] = None
+
+    def _caps(self) -> tuple:
+        return tuple(self.subs[k].cap for k in self._active)
+
+    def _fused(self, caps: tuple):
+        dets = [self.subs[k] for k in self._active]
+
+        def step(frames):
+            outs = [det._detect_device(frames, cap)
+                    for det, cap in zip(dets, caps)]
+            # every cascade of the port has a packed output: stack them
+            # into one [B, K, Wmax] array (JAX batch.py:288-296); the
+            # widths are static and travel with the program
+            ws = tuple(int(o["packed"].shape[1]) for o in outs)
+            w = max(ws)
+            packed_all = torch.stack([
+                torch.nn.functional.pad(o["packed"], (0, w - wk))
+                for o, wk in zip(outs, ws)], dim=1)
+            return {"outs": outs, "packed_all": packed_all, "widths": ws}
+        return step
+
+    def program(self, B: int, caps: tuple) -> Program:
+        """The fused program for ``B`` frames at the cascades' ``caps``.
+        One is kept: another batch size or caps release the old one once
+        its replays are done."""
+        p = self._program
+        if p is not None and p.key == (B, caps):
+            return p
+        self._program = None
+        if p is not None:
+            p.release()
+        det = self.subs[self._active[0]]
+        self._program = Program(
+            self._fused(caps), (B, det.H, det.W), det.device,
+            graph=(det.device.type == "cuda"
+                   and det.dtype == torch.float32),
+            readback=("packed_all",), key=(B, caps))
+        return self._program
+
+    def put(self, frames) -> torch.Tensor:
+        return self.subs[0].put(frames)
+
+    def run_device(self, frames):
+        """Run the fused program on a batch at the current caps; returns
+        its ``Handle``."""
+        frames = self.subs[0].frames(frames)
+        return self.program(frames.shape[0], self._caps()).run(frames)
+
+    @staticmethod
+    def _read(h) -> List[np.ndarray]:
+        """Each active cascade's packed readback from the ONE stacked
+        copy, cut to its width from the program's static shapes, never
+        from detector state (a regrowth may have replaced the program
+        since this batch was enqueued)."""
+        p_all = h.program.read(h)["packed_all"]
+        return [p_all[:, j, :w] for j, w in enumerate(h.info["widths"])]
+
+    def detect(self, frames, min_neighbors: int = 3,
+               ) -> List[List[DetectionResult]]:
+        """Detect with every cascade; returns results[k][b] indexed by
+        cascade then frame.  Only the cascades that overflowed grow their
+        cap; the fused program is then captured again and the batch run
+        again."""
+        n = len(frames)
+        if not self._active:
+            return [_empty_results(n) for _ in self.subs]
+        frames = self.subs[0].frames(frames)
+        while True:
+            h = self.run_device(frames)
+            packed = self._read(h)
+            grew = False
+            for j, k in enumerate(self._active):
+                det = self.subs[k]
+                if (packed[j][:, 0] > det.cap).any() \
+                        and det.cap < det.n_visit:
+                    det.cap = min(det.cap * 4, det.n_visit)
+                    grew = True
+            if not grew:
+                break
+        return self._finish_all(frames, packed, min_neighbors,
+                                h.program.key[1])
+
+    def _finish_all(self, frames, packed, min_neighbors, caps):
+        results = [_empty_results(len(frames)) for _ in self.subs]
+        for j, k in enumerate(self._active):
+            det, cap = self.subs[k], caps[j]
+            # the full arrays, for a frame that accepted more windows than
+            # the packed array holds: this cascade's batch again, eagerly
+            def full(d=det, c=cap):
+                return d._detect_device(d.put(frames), c)
+
+            results[k] = [finish(c, o, min_neighbors) for c, o in
+                          det.unpack(packed[j], cap, full)]
+        return results
+
+    def detect_stream(self, batches, min_neighbors: int = 3,
+                      depth: int = 2, threaded: bool = True):
+        """Pipelined multi-cascade detection over [B, H, W] batches; yields
+        one ``results[k][b]`` per batch, in order.  The caps in effect at
+        enqueue travel with the batch, as in
+        :meth:`BatchedPyramidDetector.detect_stream`."""
+        if not self._active:
+            for frames in batches:
+                yield [_empty_results(len(frames)) for _ in self.subs]
+            return
+        yield from _stream(self, batches, min_neighbors, depth, threaded)
+
+    _enqueue = run_device
+
+    def _drain(self, frames, h, min_neighbors):
+        caps = h.program.key[1]
+        packed = self._read(h)
+        for j, k in enumerate(self._active):
+            if _runs_again(packed[j], caps[j], self.subs[k].n_visit):
+                return None
+        return self._finish_all(frames, packed, min_neighbors, caps)

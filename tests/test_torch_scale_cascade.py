@@ -120,7 +120,7 @@ def test_overflow_is_seen_and_regrowth_heals_it():
     want, _ = ref.candidates(_image())
     small = _port(DEFAULT, 4, cap=16)
     planes = small._prep(small.put(_image()))
-    packed, _ = small._detect_device(planes, 16)
+    packed = small._scales_device(planes, 16)["packed"].numpy()
     assert (packed[:, 0] > 16).any()            # the overflow is visible
     got, ov = small.candidates(_image())
     assert not ov and small.cap > 16
