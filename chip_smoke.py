@@ -90,12 +90,32 @@ batch, and scale-cascade mode's demo configuration; it prints eager and
 graph ms a frame, capture and instantiation times, graph nodes and the
 memory reserved.
 
+Four phases then take cascade files and the host's native code: ``xml``
+writes every zoo cascade as OpenCV XML (the port's writer), loads each by
+path through ``CascadeClassifier`` and by name through
+``$CLFD_CASCADE_DIR``, and holds the specs equal to the ``.npz`` ones and
+the card's candidates and boxes byte-equal to the ``.npz`` route's (VGA
+for all 19, 1080p frontalface_alt at batch 8 from its graph, the
+scale-cascade demo), printing parse seconds; ``native`` builds the C++
+library afresh (seconds, g++ version), fails unless it loads, holds the
+native grouping (both variants, thresholds 1 and 3) equal to the numpy
+specification on the main paths' own candidates with ms a frame of
+each route, and runs the batch-8 stream threaded and unthreaded with
+each route in turns (frames/s, equal results); ``oracle`` holds float64
+on the card box for box, and float32 within the PARITY bounds, against
+the port's C oracle at full depth (1080p ``photo_scene``:
+frontalface_alt, alt2, alt_tree; the scale-cascade demo in float64),
+printing its windows/s; ``demo`` runs ``tools/demo.py`` with the default
+cascade as an XML path.  They run before the profiler, like every timed
+phase.
+
 A wrapper counts the launches of its kernel that run on the card: eager
 calls and a program's warm-up, never a graph capture (which runs
 nothing) and never a replay (which calls no wrapper); the programs count
 their replays.  The ``launches`` of the kernels line are the main paths'
 own runs at the end of the script (frontalface_alt and frontalface_alt2
-at 1080p, batch 1, and scale-cascade mode's demo, each through
+at 1080p, batch 1, scale-cascade mode's demo and frontalface_alt loaded
+from XML, each through
 ``detect`` and its graph replay), counted from ``torch.profiler``'s kernel
 records by each kernel's symbol, with every count set to 0 just before;
 the profiler runs last because it slows every later launch's host side.
@@ -189,6 +209,10 @@ STREAM_BATCHES = 8
 STREAM_SMALL_CAP = 256
 CONFIG5 = ("haarcascade_profileface", "haarcascade_upperbody",
            "haarcascade_fullbody")
+# the oracle phase: full-depth parity against the C oracle on photo_scene
+ORACLE_CASES = ("haarcascade_frontalface_alt", "haarcascade_frontalface_alt2",
+                "haarcascade_frontalface_alt_tree")
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 # each kernel's symbol in csrc/; the profiler's records name it demangled
@@ -1754,6 +1778,352 @@ def breakdown(det, frames) -> dict:
                 votes_stages_plain=plain, votes_stages_bound=bnd)
 
 
+# ---- this slice's phases: XML cascades, the native library, the C
+# oracle, the demo ----------------------------------------------------------
+
+def work_dir(name: str) -> str:
+    """A fresh directory for ``name`` under the package's ignored build
+    directory (the script writes nothing outside its checkout)."""
+    import shutil
+    path = os.path.join(ROOT, "clfacedetection_torch", "build", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def check_xml(ct, stack8, vga) -> dict:
+    """Every zoo cascade written as OpenCV XML by the port's writer (the
+    card has no cv2 and no cascade files), then loaded back through
+    ``CascadeClassifier(path)`` and by name through ``$CLFD_CASCADE_DIR``:
+    specs equal to the ``.npz`` ones, array for array and dtype for
+    dtype; card candidates and boxes byte-equal to the ``.npz`` route's at
+    VGA for all 19, at 1080p frontalface_alt batch 8 through its CUDA
+    graph, and at the scale-cascade demo configuration.  Prints each
+    cascade's parse seconds."""
+    import numpy as np
+    import torch
+    from clfacedetection_torch.models import (ARRAY_FIELDS, CASCADE_NAMES,
+                                              parse_haar_xml, write_haar_xml)
+    from clfacedetection_torch.models import zoo
+    t0 = time.perf_counter()
+    xml_dir = work_dir("xml")
+
+    def same_spec(a, b, what):
+        need((a.window_w, a.window_h) == (b.window_w, b.window_h)
+             and all(getattr(a, f).dtype == getattr(b, f).dtype
+                     and np.array_equal(getattr(a, f), getattr(b, f))
+                     for f in ARRAY_FIELDS),
+             f"xml {what}: the parsed spec differs from the .npz one")
+
+    def same_result(a, b, what):
+        need(np.array_equal(a.candidates, b.candidates)
+             and a.candidates.dtype == b.candidates.dtype
+             and np.array_equal(a.boxes, b.boxes)
+             and np.array_equal(a.neighbors, b.neighbors),
+             f"xml {what}: the card's result differs from the .npz route's")
+
+    parse_s, paths, cands = {}, {}, {}
+    old_env = os.environ.get("CLFD_CASCADE_DIR")
+    os.environ["CLFD_CASCADE_DIR"] = xml_dir
+    try:
+        for name in CASCADE_NAMES:
+            spec = ct.load_cascade(name)
+            path = os.path.join(xml_dir, f"{name}.xml")
+            write_haar_xml(spec, path)
+            # a second file under a name of its own: the artifacts come
+            # first in the search, so the zoo's names resolve to the .npz
+            write_haar_xml(spec, os.path.join(xml_dir, f"xml_{name}.xml"))
+            t1 = time.perf_counter()
+            parsed = parse_haar_xml(path)
+            parse_s[name] = time.perf_counter() - t1
+            same_spec(parsed, spec, name)
+            need(zoo.available_cascades()[f"xml_{name}"].endswith(".xml"),
+                 f"xml {name}: $CLFD_CASCADE_DIR was not searched")
+            same_spec(ct.load_cascade(f"xml_{name}"), spec, f"{name} by name")
+            clf_x = ct.CascadeClassifier(path, device="cuda")
+            same_spec(clf_x.spec, spec, f"{name} classifier")
+            clf_n = ct.CascadeClassifier(spec, device="cuda")
+            rx = clf_x.detect_multi_scale_full(
+                vga, min_neighbors=MIN_NEIGHBORS, **SWEEP_KNOBS)
+            rn = clf_n.detect_multi_scale_full(
+                vga, min_neighbors=MIN_NEIGHBORS, **SWEEP_KNOBS)
+            same_result(rx, rn, f"{name} at VGA")
+            cands[name] = len(rx.candidates)
+            paths[name] = path
+            del clf_x, clf_n
+        torch.cuda.empty_cache()
+    finally:
+        if old_env is None:
+            os.environ.pop("CLFD_CASCADE_DIR", None)
+        else:
+            os.environ["CLFD_CASCADE_DIR"] = old_env
+    say("xml", part="vga", cascades=len(cands), equal_to_npz=True,
+        candidates=json.dumps(cands),
+        parse_seconds=json.dumps({k: round(v, 4)
+                                  for k, v in parse_s.items()}))
+
+    # 1080p frontalface_alt, batch 8, through its CUDA graph
+    rec = dict(parse_seconds=parse_s, vga_candidates=cands, paths=paths)
+    out = {}
+    for route, cascade in (("xml", paths[CASCADE]), ("npz", CASCADE)):
+        b = ct.BatchedPyramidDetector(ct.load_cascade(cascade), SHAPE,
+                                      batch=BATCH, device="cuda", **KNOBS)
+        out[route] = b.detect(stack8, MIN_NEIGHBORS)
+        need(b.det._program is not None and b.det._program.graphed,
+             f"xml 1080p batch 8 ({route}): no CUDA graph")
+        del b
+    for i, (a, b) in enumerate(zip(out["xml"], out["npz"])):
+        same_result(a, b, f"1080p batch 8 frame {i}")
+    rec["b8_candidates"] = sum(len(r.candidates) for r in out["xml"])
+    # the scale-cascade demo configuration
+    demo = frame(5, VGA)
+    res = {}
+    for route, cascade in (("xml", paths[DEMO_CASCADE]),
+                           ("npz", DEMO_CASCADE)):
+        clf = ct.CascadeClassifier(cascade, device="cuda",
+                                   mode="scale_cascade")
+        res[route] = clf.detect_multi_scale_full(
+            demo, min_neighbors=MIN_NEIGHBORS, **DEMO_KNOBS)
+        del clf
+    same_result(res["xml"], res["npz"], "scale-cascade demo")
+    rec["demo_candidates"] = len(res["xml"].candidates)
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    say("xml", part="1080p_b8_and_demo", equal_to_npz=True,
+        b8_candidates=rec["b8_candidates"],
+        demo_candidates=rec["demo_candidates"],
+        seconds=round(rec["seconds"], 3))
+    return rec
+
+
+def check_native(ct, spec, stack, cand_sets) -> dict:
+    """The native library: built afresh into a directory of its own
+    (seconds and the compiler's version printed), that copy loaded and
+    called once, and the package's own copy loadable; on the main
+    paths' own candidates (``cand_sets``: name -> one candidate array a
+    frame) the grouping's native route equals its numpy specification
+    (``CLFD_NO_NATIVE=1``) for both variants at grouping thresholds 1
+    (where the demo's minNeighbors 0 groups) and 3, with ms a frame of
+    each route.  Then the batch-8 stream (threaded and unthreaded,
+    ``STREAM_BATCHES`` batches) with each route in turns: its frames/s,
+    its results equal."""
+    import ctypes
+    import shutil
+    import numpy as np
+    from clfacedetection_torch import native
+    from clfacedetection_torch.detect.grouping import group_rectangles
+    t0 = time.perf_counter()
+    gxx = subprocess.run([shutil.which("g++") or "g++", "--version"],
+                         capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    t1 = time.perf_counter()
+    lib = native.build(work_dir("native"))
+    build_s = time.perf_counter() - t1
+    # the fresh copy loads and partitions three boxes into two classes
+    fresh = native._bind(ctypes.CDLL(lib))
+    boxes = np.ascontiguousarray([[10, 10, 50, 50], [11, 10, 50, 51],
+                                  [200, 200, 30, 30]], np.int64)
+    labels = np.empty(3, np.int32)
+    n = fresh.clfd_partition(native._ptr(boxes, ctypes.c_int64), 3, 0.2,
+                             native._ptr(labels, ctypes.c_int32))
+    need(n == 2 and labels.tolist() == [0, 0, 1],
+         f"the fresh build partitions wrongly: {n} {labels.tolist()}")
+    need(native.native_available(),
+         f"the native library does not load: {native.native_error()}")
+    need(os.path.basename(lib) == os.path.basename(native.build()),
+         "the fresh build's name differs from the package's")
+    say("native", part="build", seconds=round(build_s, 3),
+        gxx=repr(gxx[0] if gxx else "unknown"),
+        flags=" ".join(native.CXX_FLAGS))
+
+    def route(no_native: bool):
+        if no_native:
+            os.environ["CLFD_NO_NATIVE"] = "1"
+        else:
+            os.environ.pop("CLFD_NO_NATIVE", None)
+
+    reps = 5
+    grouping = {}
+    try:
+        for what, frames in cand_sets.items():
+            rec = dict(frames=len(frames),
+                       candidates=int(sum(len(c) for c in frames)))
+            for thr in (1, 3):
+                for variant in ("opencv", "clod"):
+                    got = {}
+                    for no_native in (False, True):
+                        route(no_native)
+                        got[no_native] = [group_rectangles(c, thr, 0.2,
+                                                           variant)
+                                          for c in frames]
+                    need(all(np.array_equal(a[0], b[0])
+                             and np.array_equal(a[1], b[1])
+                             for a, b in zip(got[False], got[True])),
+                         f"native {what}: threshold {thr} {variant}: the "
+                         f"native grouping differs from numpy's")
+            for no_native in (False, True):
+                route(no_native)
+                t = time.perf_counter()
+                for _ in range(reps):
+                    for c in frames:
+                        group_rectangles(c, MIN_NEIGHBORS, 0.2)
+                key = ("numpy" if no_native else "native") + "_ms_per_frame"
+                rec[key] = (time.perf_counter() - t) * 1e3 / (
+                    reps * len(frames))
+            rec["ratio"] = rec["numpy_ms_per_frame"] / max(
+                rec["native_ms_per_frame"], 1e-9)
+            grouping[what] = rec
+            say("native", part="grouping", path=what, equal_to_numpy=True,
+                **rec)
+    finally:
+        route(False)
+
+    # the batch-8 stream with each route in turns (native, numpy, numpy,
+    # native), threaded and unthreaded
+    frames = list(stack.values())
+    batches = [np.stack([frames[(i + j) % len(frames)]
+                         for j in range(BATCH)])
+               for i in range(STREAM_BATCHES)]
+    bdet = ct.BatchedPyramidDetector(spec, SHAPE, batch=BATCH,
+                                     device="cuda", **KNOBS)
+    list(bdet.detect_stream(batches[:2], MIN_NEIGHBORS))   # the capture
+    stream, want = {}, None
+    try:
+        for threaded in (True, False):
+            for no_native in (False, True, True, False):
+                route(no_native)
+                t = time.perf_counter()
+                got = list(bdet.detect_stream(batches, MIN_NEIGHBORS,
+                                              threaded=threaded))
+                fps = len(batches) * BATCH / (time.perf_counter() - t)
+                want = want or got
+                same_results(got, want, f"native stream (threaded "
+                             f"{threaded}, numpy {no_native})")
+                key = ("threaded" if threaded else "unthreaded") + \
+                    ("_numpy_fps" if no_native else "_native_fps")
+                stream.setdefault(key, []).append(fps)
+    finally:
+        route(False)
+    del bdet
+    stream["candidates_per_frame"] = sum(
+        len(r.candidates) for b in want for r in b) / (len(want) * BATCH)
+    say("native", part="stream", batch=BATCH, batches=STREAM_BATCHES,
+        equal=True, **{k: json.dumps(v) if isinstance(v, list) else v
+                       for k, v in stream.items()})
+    return dict(build_seconds=build_s, gxx=gxx[0] if gxx else None,
+                grouping=grouping, stream=stream,
+                seconds=time.perf_counter() - t0)
+
+
+def check_oracle(ct) -> dict:
+    """Full-depth parity on the card against the port's C oracle
+    (``COracle``), no stage cut: scale-image mode on ``photo_scene`` at the
+    headline settings (``SHAPE``) with frontalface_alt, alt2 and
+    alt_tree, float64 (the plain versions on the card) box for box and float32 (the kernels) within docs/PARITY.md's
+    bounds (candidate Jaccard >= 0.995, grouped boxes 1:1 at IoU >= 0.9);
+    scale-cascade mode at the demo configuration in float64, box for box.
+    Prints the windows the oracle evaluated and its windows/s."""
+    import types
+    import numpy as np
+    import torch
+    from clfacedetection_torch.detect.grouping import group_rectangles
+    from clfacedetection_torch.native import oracle_candidates
+    from clfacedetection_torch.utils import photo_scene
+    t0 = time.perf_counter()
+    out = {}
+
+    def boxes_set(b):
+        return set(map(tuple, np.asarray(b, np.int64).reshape(-1, 4)
+                       .tolist()))
+
+    for name in ORACLE_CASES:
+        spec = ct.load_cascade(name)
+        photo = photo_scene(SHAPE)
+        t1 = time.perf_counter()
+        ref, windows, run_s = oracle_candidates(
+            photo, spec, "scale_image", KNOBS["scale_factor"],
+            KNOBS["min_size"])
+        oracle_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        d64 = ct.PyramidDetector(spec, SHAPE, device="cuda",
+                                 dtype=torch.float64, **KNOBS)
+        c64, o64 = d64.candidates(photo)
+        f64_s = time.perf_counter() - t1
+        del d64
+        torch.cuda.empty_cache()
+        need(not o64 and len(ref) > 0, f"oracle {name}: overflow {o64}, "
+             f"{len(ref)} oracle boxes")
+        s64, sref = boxes_set(c64), set(ref)
+        need(s64 == sref, f"oracle {name}: float64 on the card has "
+             f"{len(s64 - sref)} extra and {len(sref - s64)} missing of "
+             f"{len(sref)}")
+        d32 = ct.PyramidDetector(spec, SHAPE, device="cuda", **KNOBS)
+        r32 = d32.detect(photo, MIN_NEIGHBORS)
+        del d32
+        torch.cuda.empty_cache()
+        ref_arr = np.asarray(ref, np.int32).reshape(-1, 4)
+        p = parity(r32, types.SimpleNamespace(
+            candidates=ref_arr,
+            boxes=group_rectangles(ref_arr, MIN_NEIGHBORS, 0.2)[0]))
+        need(p["jaccard"] >= 0.995 and p["boxes_matched"],
+             f"oracle {name}: float32 outside the PARITY bounds: {p}")
+        out[name] = dict(shape=f"{SHAPE[0]}x{SHAPE[1]}", windows=windows,
+                         oracle_candidates=len(ref),
+                         oracle_seconds=oracle_s, oracle_run_seconds=run_s,
+                         windows_per_s=windows / run_s,
+                         f64_card_seconds=f64_s, f64_equal=True,
+                         f32_parity=p)
+        say("oracle", mode="scale_image", cascade=name,
+            **{k: json.dumps(v) if isinstance(v, dict) else v
+               for k, v in out[name].items()})
+    # scale-cascade mode: the demo configuration, float64, box for box
+    spec = ct.load_cascade(DEMO_CASCADE)
+    demo = frame(5, VGA)
+    t1 = time.perf_counter()
+    ref, windows, run_s = oracle_candidates(demo, spec, "scale_cascade",
+                                            **DEMO_KNOBS)
+    oracle_s = time.perf_counter() - t1
+    g64 = ct.ScaleCascadeDetector(spec, VGA, device="cuda",
+                                  dtype=torch.float64, **DEMO_KNOBS)
+    c64, o64 = g64.candidates(demo)
+    del g64
+    need(not o64 and len(ref) > 0 and boxes_set(c64) == set(ref),
+         f"oracle demo: float64 scale-cascade differs from the C oracle "
+         f"({len(c64)} against {len(ref)})")
+    out["scale_cascade_demo"] = dict(
+        shape=f"{VGA[0]}x{VGA[1]}", windows=windows,
+        oracle_candidates=len(ref), oracle_seconds=oracle_s,
+        oracle_run_seconds=run_s, windows_per_s=windows / run_s,
+        f64_equal=True)
+    say("oracle", mode="scale_cascade", cascade=DEMO_CASCADE,
+        **out["scale_cascade_demo"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_demo(xml_path: str) -> dict:
+    """``tools/demo.py`` in this process on the card, with the default
+    cascade given as an XML path.  The golden baseline is skipped: its
+    numpy window loop takes minutes at 640x480, and the oracle phase
+    holds the demo configuration box for box in its stead.  Prints the
+    demo's lines."""
+    from clfacedetection_torch.tools import demo
+    t0 = time.perf_counter()
+    out = demo.main(["--cascade", xml_path, "--skip-baseline",
+                     "--out-dir", work_dir("demo"), "--device", "cuda"],
+                    log=lambda line: print(f"[demo] {line}", flush=True))
+    need(out["cascade"] == DEMO_CASCADE and all(
+        os.path.getsize(p) > 0 for p in out["files"].values()),
+        f"demo: {out['cascade']} or its files are wrong")
+    need(len(out["boxes"]["scale_cascade"]) > 0, "demo: no boxes")
+    rec = dict(ms=out["ms"], batched=out["batched"], multi=out["multi"],
+               boxes={k: len(v) for k, v in out["boxes"].items()},
+               seconds=time.perf_counter() - t0)
+    say("demo", **{k: json.dumps(v) if isinstance(v, dict) else v
+                   for k, v in rec.items()})
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1966,6 +2336,8 @@ def main() -> int:
             cap=vdet.cap, nodes=vdet.table.n_clf * vdet.table.T,
             tilted=vdet.table.has_tilted, tree=vdet.is_tree)
         vres, vl = drive(vdet, gray)
+        if vdet.is_tree:
+            tree_cands = vres.candidates
         need(all(vl[k] > 0 for k in ("haar_front", "compact", "haar_tail",
                                      "tail_rows"))
              and vl["haar_tail2"] == 0,
@@ -2159,6 +2531,19 @@ def main() -> int:
         empty_ms=tool["empty_ms"], rates=rates, sass=tool["sass"],
         matmul=tool["matmul"], front_sweep=tool["front"])
 
+    # ---- XML cascades, the native library, the C oracle, the demo ------
+    xml = check_xml(ct, stack8, vga)
+    cfg5 = multi5.detect(stack8, min_neighbors=0)
+    native = check_native(ct, spec, stack, {
+        "alt_synth": [res.candidates], "alt_photo": [pres.candidates],
+        "alt_tree": [tree_cands],
+        "config5": [r.candidates for rk in cfg5 for r in rk],
+        "demo": [sc_det.candidates(sc_frame)[0]]})
+    oracle = check_oracle(ct)
+    demo = check_demo(xml["paths"][DEMO_CASCADE])
+    xdet = ct.PyramidDetector(ct.load_cascade(xml["paths"][CASCADE]), SHAPE,
+                              device="cuda", **KNOBS)
+
     # the profiler last (see the head of this file): the compaction's and
     # nonzero_static's device time from their kernels' durations, then
     # frontalface_alt's batch-1 pipeline timed again
@@ -2214,7 +2599,9 @@ def main() -> int:
             (CASCADE, det, gray, ("haar_front", "compact", "haar_tail2")),
             (a2, a2det, gray, ("haar_front", "compact", "haar_tail",
                                "tail_rows")),
-            ("scale_cascade", sc_det, sc_frame, ("compact",))):
+            ("scale_cascade", sc_det, sc_frame, ("compact",)),
+            ("xml_" + CASCADE, xdet, gray, ("haar_front", "compact",
+                                            "haar_tail2"))):
         mdet.detect(img, MIN_NEIGHBORS)
         _, main[what] = profiled_drive(
             counters, lambda: mdet.detect(img, MIN_NEIGHBORS), what)
@@ -2271,6 +2658,10 @@ def main() -> int:
     record["float64"] = f64
     record["scale_cascade"] = sc
     record["programs"] = programs
+    record["xml"] = {k: v for k, v in xml.items() if k != "paths"}
+    record["native"] = native
+    record["oracle"] = oracle
+    record["demo"] = demo
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,17 +3,25 @@
 Port of ``clfacedetection_tpu/detect/grouping.py`` (AgroupRectangles +
 ASimilarRects, tempcv.cpp:129-243, with ``cv::partition`` union-find,
 and the ROC overload ``group_rectangles_levels``).
-The pairwise similarity test is one vectorised numpy pass; the union-find
-then visits the similar pairs in the same (i, j) row-major order as the
-nested loop it replaces, so labels come out identical.  The native C++
-twin of the JAX package is not ported yet.
+``group_rectangles`` runs the C++ twin (``native/grouping.cpp``, a
+ctypes call that releases the GIL) when the native library loads and
+``CLFD_NO_NATIVE`` is not ``1``; the numpy code below is its
+specification and fallback.  Its pairwise similarity test is one
+vectorised numpy pass; the union-find then visits the similar pairs in
+the same (i, j) row-major order as the nested loop it replaces, so
+labels come out identical.  ``variant="clod"`` keeps the reference's own
+C port's containment bugs (clod.cpp:333-339) for parity studies.  The
+ROC overload stays numpy, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
+
+from ..native import group_rectangles_native, native_available
 
 __all__ = ["group_rectangles", "group_rectangles_levels",
            "partition_similar"]
@@ -70,18 +78,22 @@ def partition_similar(boxes: np.ndarray, eps: float) -> Tuple[np.ndarray, int]:
 
 
 def group_rectangles(boxes: np.ndarray, group_threshold: int,
-                     eps: float = 0.2) -> Tuple[np.ndarray, np.ndarray]:
+                     eps: float = 0.2,
+                     variant: str = "opencv") -> Tuple[np.ndarray, np.ndarray]:
     """Group candidate boxes; returns (boxes [m,4] int32, neighbors [m]).
 
     AgroupRectangles semantics (tempcv.cpp:145-243): partition into
     similarity classes, average each class with float ``1.f/n`` scaling
     and truncation, drop classes with ``<= group_threshold`` members, drop
     small classes contained in a bigger one when
-    ``n2 > max(3, n1) or n1 < 3``.
+    ``n2 > max(3, n1) or n1 < 3``.  ``variant="clod"`` takes the
+    reference port's containment test instead.
     """
     boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
     if group_threshold <= 0 or len(boxes) == 0:
         return boxes.astype(np.int32), np.ones(len(boxes), np.int32)
+    if os.environ.get("CLFD_NO_NATIVE") != "1" and native_available():
+        return group_rectangles_native(boxes, group_threshold, eps, variant)
 
     labels, ncls = partition_similar(boxes, eps)
     sums = np.zeros((ncls, 4), np.int64)
@@ -103,11 +115,21 @@ def group_rectangles(boxes: np.ndarray, group_threshold: int,
             if j == i or n2 <= group_threshold:
                 continue
             r2 = rrects[j]
-            dx = int(r2[2] * eps)
-            dy = int(r2[3] * eps)
-            inside = (r1[0] >= r2[0] - dx and r1[1] >= r2[1] - dy
-                      and r1[0] + r1[2] <= r2[0] + r2[2] + dx
-                      and r1[1] + r1[3] <= r2[1] + r2[3] + dy)
+            if variant == "clod":
+                # the reference port's bugs (clod.cpp:333-339): the clamp
+                # maxes with INT_MAX (so dx/dy are huge) and the right edge
+                # uses width+width
+                dx = max(int(r2[2] * eps), np.iinfo(np.int32).max)
+                dy = max(int(r2[3] * eps), np.iinfo(np.int32).max)
+                inside = (r1[0] >= r2[0] - dx and r1[1] >= r2[1] - dy
+                          and r1[2] + r1[2] <= r2[0] + r2[2] + dx
+                          and r1[3] + r1[3] <= r2[1] + r2[3] + dy)
+            else:
+                dx = int(r2[2] * eps)
+                dy = int(r2[3] * eps)
+                inside = (r1[0] >= r2[0] - dx and r1[1] >= r2[1] - dy
+                          and r1[0] + r1[2] <= r2[0] + r2[2] + dx
+                          and r1[1] + r1[3] <= r2[1] + r2[3] + dy)
             if inside and (n2 > max(3, n1) or n1 < 3):
                 contained = True
                 break
