@@ -109,6 +109,20 @@ printing its windows/s; ``demo`` runs ``tools/demo.py`` with the default
 cascade as an XML path.  They run before the profiler, like every timed
 phase.
 
+The ``mesh`` phase then runs the multi-device layer (``runtime/mesh.py``,
+``parallel/``) on every card where the machine has several, else on
+positions that repeat card 0, each on a stream of its own: 1080p
+frontalface_alt at batch 8 over 8 positions (every frame's packed
+readback byte-equal to the single-device batch-8 program's, on both
+scenes; ``detect_sharded`` + ``gather_detections`` box for box), BASELINE
+config 5 over 4 positions (byte-equal to the unsharded graph), row strips
+on ``photo_scene`` (k = 8 and 4, one regrowing from cap 256 * k, and the
+tilted mcs_nose at VGA through the v1 tail) equal to
+``PyramidDetector.candidates``, and ``shard_scales`` over 4 positions at
+the demo configuration box for box; it prints host and device ms of the
+8-strip frame, the batch-8 stream's frames/s and the sharded demo's ms,
+each beside the single-device figure, and graph nodes.
+
 A wrapper counts the launches of its kernel that run on the card: eager
 calls and a program's warm-up, never a graph capture (which runs
 nothing) and never a replay (which calls no wrapper); the programs count
@@ -502,20 +516,26 @@ def profiled(fn, reps: int) -> dict:
     return dict(device_ms=us / 1e3 / reps, kernels_per_call=len(ev) / reps)
 
 
-def profiler_warmup() -> int:
-    """One ``torch.profiler`` trace of a small kernel, its records
-    discarded: the first trace of a process once came back without its
-    device records (one run of four on the H100).  Returns the device
-    records it saw, for the log."""
+def profiler_warmup(tries: int = 5) -> list:
+    """``torch.profiler`` traces of a small kernel, their records
+    discarded, until one holds its device records: the first traces of a
+    process have come back without them on the H100 (the first trace in
+    one run of four; two traces in a row in another run).  Returns the
+    device records each trace saw, for the log; the traces that measure
+    need their own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     x = torch.ones(1024, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        (x + 1).sum()
+    seen = []
+    while len(seen) < tries and not any(seen):
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (x + 1).sum()
+            torch.cuda.synchronize()
+        seen.append(sum(1 for e in prof.events()
+                        if e.device_type == DeviceType.CUDA))
+    return seen
 
 
 def nonzero_static(flags, cap):
@@ -2116,12 +2136,272 @@ def check_demo(xml_path: str) -> dict:
         os.path.getsize(p) > 0 for p in out["files"].values()),
         f"demo: {out['cascade']} or its files are wrong")
     need(len(out["boxes"]["scale_cascade"]) > 0, "demo: no boxes")
+    need(out["strips"]["match"], f"demo: the row-strip section did not "
+         f"match the single-device detector: {out['strips']}")
     rec = dict(ms=out["ms"], batched=out["batched"], multi=out["multi"],
+               strips=out["strips"],
                boxes={k: len(v) for k, v in out["boxes"].items()},
                seconds=time.perf_counter() - t0)
     say("demo", **{k: json.dumps(v) if isinstance(v, dict) else v
                    for k, v in rec.items()})
     return rec
+
+
+def count_run(counters, fn):
+    """``fn()`` with every count from 0; its result and the wrappers'
+    counts (``read_counts``: eager launches, a program's warm-up
+    included)."""
+    reset_counts(counters)
+    out = fn()
+    return out, read_counts(counters)
+
+
+def mesh_devices(k: int):
+    """The devices of a k-position mesh: every card where the machine has
+    more than one (``data_parallel_mesh``, cut to k), else k positions of
+    card 0, each on a stream of its own."""
+    import torch
+    from clfacedetection_torch.runtime import data_parallel_mesh
+    if torch.cuda.device_count() > 1:
+        return list(data_parallel_mesh().devices[:k])
+    return [torch.device("cuda", 0)] * k
+
+
+def release_programs(*objs) -> None:
+    """Let go of the captured programs of detectors (and of their mesh
+    positions), so that their graph pools leave the card."""
+    import torch
+    for o in objs:
+        for d in getattr(o, "_dets", [o]):
+            multi = hasattr(d, "_programs")
+            for p in (d._programs if multi else [d._program]):
+                if p is not None:
+                    p.release()
+            if multi:
+                d._programs = [None] * len(d._programs)
+            else:
+                d._program = None
+    torch.cuda.empty_cache()
+
+
+def check_mesh(ct, counters, spec, frames8, photo, sc_det, sc_frame):
+    """The multi-device layer (``runtime/mesh.py``, ``parallel/``) on
+    ``data_parallel_mesh()`` where the machine has several cards, else on
+    positions that repeat card 0 (each on a stream of its own):
+
+    * 1080p frontalface_alt at the headline settings, batch 8 over 8
+      positions (``BatchedPyramidDetector(mesh=)``): every frame's packed
+      readback byte-equal to the single-device batch-8 program's, on
+      ``synth_scene`` and ``photo_scene``; ``detect`` equal frame for
+      frame; ``detect_sharded`` + ``gather_detections`` box for box;
+    * BASELINE config 5 through ``MultiCascadeBatchedDetector(mesh=)``,
+      batch 8 over 4 positions, its packed readback byte-equal to the
+      unsharded graph's at the same caps;
+    * ``StripShardedPyramidDetector`` at 1080p alt on ``photo_scene`` with
+      k = 8 and 4, one regrowing from cap 256 * k, and mcs_nose (tilted,
+      the v1 tail) at VGA with k = 4: candidates and overflow equal to
+      ``PyramidDetector.candidates``;
+    * ``shard_scales`` over 4 positions at the demo configuration, equal
+      box for box to the single-device detector;
+    * times beside the single-device figures of the same run: host and
+      device ms a frame of the 8-strip frame, frames/s of the batch-8
+      stream, the sharded demo's ms a frame; graph nodes.
+
+    Each case's wrapper counts show the kernels (not the plain versions)
+    launched; the programs are released at the end.  Returns the record
+    and the main-path drives the kernels line reads: (name, detector,
+    input, the kernels it runs) of the single-device batch 8, the batch
+    mesh, the 8 strips and the sharded demo."""
+    import numpy as np
+    import torch
+    from clfacedetection_torch.parallel import (
+        StripShardedPyramidDetector, detect_sharded, gather_detections)
+    from clfacedetection_torch.runtime import Mesh
+    from clfacedetection_torch.runtime.batch import _read as read_run
+    t_all = time.perf_counter()
+    rec = {"cards": torch.cuda.device_count()}
+    dev8, dev4 = mesh_devices(8), mesh_devices(4)
+    rec["positions"] = {"8": [str(d) for d in dev8],
+                        "4": [str(d) for d in dev4]}
+
+    def front_path(launches, what, tail=("haar_tail2",)):
+        uses = ("haar_front", "compact") + tuple(tail)
+        need(all(launches[k] > 0 for k in uses),
+             f"{what}: the kernels did not launch: {launches}")
+
+    # ---- the batch mesh: 8 positions, batch 8 --------------------------
+    photo8 = np.stack([photo] * BATCH)
+    single = ct.BatchedPyramidDetector(spec, SHAPE, BATCH, device="cuda",
+                                       **KNOBS)
+    bm = ct.BatchedPyramidDetector(spec, SHAPE, BATCH,
+                                   mesh=Mesh(dev8), **KNOBS)
+    for scene, fr in (("synth", frames8), ("photo", photo8)):
+        want = single.detect(fr, MIN_NEIGHBORS)
+        got, launches = count_run(counters,
+                                  lambda: bm.detect(fr, MIN_NEIGHBORS))
+        need(single.det.cap == bm.det.cap == KNOBS["cap"],
+             f"batch mesh {scene}: caps {single.det.cap} / {bm.det.cap}")
+        same_results([got], [want], f"batch mesh {scene}")
+        need(same_bytes(read_run(single.run_device(fr), "packed"),
+                        read_run(bm.run_device(fr), "packed")),
+             f"batch mesh {scene}: the packed readback differs from the "
+             f"single-device batch-8 program's")
+        gd, sharded = count_run(counters, lambda: gather_detections(
+            detect_sharded(bm.det, fr, Mesh(dev8)), bm.det, MIN_NEIGHBORS))
+        same_results([gd], [want], f"detect_sharded {scene}")
+        front_path(sharded, f"detect_sharded {scene}")
+        if scene == "synth":
+            # the positions' warm-ups: the photo's batch replays them
+            front_path(launches, "batch mesh")
+        rec[f"batch_{scene}"] = dict(
+            candidates=sum(len(r.candidates) for r in got),
+            packed_equal=True, launches=launches,
+            detect_sharded_launches=sharded)
+        say("mesh", case=f"batch8x8_{scene}", detect_sharded_equal=True,
+            **{a: json.dumps(v) if isinstance(v, dict) else v
+               for a, v in rec[f"batch_{scene}"].items()})
+    rec["batch_nodes"] = graph_nodes(bm._dets[1]._program)
+    # the batch-8 stream, single device and mesh in turns
+    batches = [frames8, photo8] * (STREAM_BATCHES // 2)
+
+    def fps(d):
+        t = time.perf_counter()
+        got = list(d.detect_stream(batches, MIN_NEIGHBORS))
+        return got, len(batches) * BATCH / (time.perf_counter() - t)
+
+    s1, f1 = fps(single)
+    m1, g1 = fps(bm)
+    m2, g2 = fps(bm)
+    s2, f2 = fps(single)
+    same_results(m1, s1, "mesh stream")
+    same_results(m2, s2, "mesh stream, second")
+    rec["stream_fps"] = dict(single=[f1, f2], mesh=[g1, g2])
+    say("mesh", case="stream", batches=len(batches), single_fps=[f1, f2],
+        mesh_fps=[g1, g2], equal=True)
+
+    # ---- config 5 over 4 positions --------------------------------------
+    specs = [ct.load_cascade(n) for n in CONFIG5]
+    m5 = ct.MultiCascadeBatchedDetector(specs, SHAPE, BATCH, device="cuda",
+                                        **KNOBS)
+    m5m = ct.MultiCascadeBatchedDetector(specs, SHAPE, BATCH,
+                                         mesh=Mesh(dev4), **KNOBS)
+    want5 = m5.detect(frames8, MIN_NEIGHBORS)
+    got5, l5 = count_run(counters,
+                         lambda: m5m.detect(frames8, MIN_NEIGHBORS))
+    need(m5._caps() == m5m._caps(), f"config 5 mesh: caps {m5m._caps()} "
+         f"against {m5._caps()}")
+    for k in range(len(specs)):
+        same_results([got5[k]], [want5[k]], f"config 5 mesh {CONFIG5[k]}")
+    need(same_bytes(read_run(m5.run_device(frames8), "packed_all"),
+                    read_run(m5m.run_device(frames8), "packed_all")),
+         "config 5 mesh: the packed readback differs from the unsharded "
+         "graph's")
+    front_path(l5, "config 5 mesh", ("haar_tail2", "haar_tail",
+                                     "tail_rows"))
+    rec["config5"] = dict(caps=list(m5m._caps()), packed_equal=True,
+                          launches=l5,
+                          nodes=graph_nodes(m5m._programs[1]))
+    say("mesh", case="config5_b8x4", packed_equal=True,
+        caps=list(m5m._caps()), launches=json.dumps(l5),
+        nodes=rec["config5"]["nodes"])
+    release_programs(m5, m5m)
+    del m5, m5m
+
+    # ---- row strips -----------------------------------------------------
+    strips = {}
+    pdet = ct.PyramidDetector(spec, SHAPE, device="cuda", **KNOBS)
+    ref, ref_ovf = pdet.candidates(photo)
+    for k, cap0 in ((8, KNOBS["cap"]), (4, KNOBS["cap"]), (8, 256 * 8)):
+        sd = ct.PyramidDetector(spec, SHAPE, device="cuda",
+                                **dict(KNOBS, cap=cap0))
+        sdet = StripShardedPyramidDetector(sd, Mesh(mesh_devices(k),
+                                                    ("strips",)))
+        (got, ovf), sl = count_run(counters,
+                                   lambda: sdet.candidates(photo))
+        need(np.array_equal(got, ref) and ovf == ref_ovf,
+             f"strips k={k} from cap {cap0}: candidates differ from "
+             f"PyramidDetector.candidates")
+        front_path(sl, f"strips k={k}")
+        what = f"k{k}_cap{cap0}"
+        strips[what] = dict(k=k, Hs=sdet.Hs, cap_from=cap0, cap=sd.cap,
+                            candidates=len(got), launches=sl,
+                            graphed=sdet._program.graphed)
+        if cap0 == 256 * 8:
+            need(sd.cap > cap0, "the regrowing strips never regrew")
+        say("mesh", case=f"strips_{what}", equal_to_single=True,
+            **{a: json.dumps(v) if isinstance(v, dict) else v
+               for a, v in strips[what].items()})
+        if (k, cap0) == (8, KNOBS["cap"]):
+            s8 = sdet
+        else:
+            release_programs(sdet)
+    # the tilted cascade through the v1 tail, VGA, k = 4
+    nose = ct.load_cascade("haarcascade_mcs_nose")
+    vga = frame(5, VGA)
+    ndet = ct.PyramidDetector(nose, VGA, device="cuda", **SWEEP_KNOBS)
+    nref, novf = ndet.candidates(vga)
+    nsd = StripShardedPyramidDetector(
+        ct.PyramidDetector(nose, VGA, device="cuda", **SWEEP_KNOBS),
+        Mesh(mesh_devices(4), ("strips",)))
+    (ngot, ngovf), nl = count_run(counters, lambda: nsd.candidates(vga))
+    need(np.array_equal(ngot, nref) and ngovf == novf,
+         "strips of mcs_nose: candidates differ from the single detector")
+    front_path(nl, "strips mcs_nose", ("haar_tail", "tail_rows"))
+    strips["mcs_nose_vga_k4"] = dict(candidates=len(ngot), launches=nl)
+    say("mesh", case="strips_mcs_nose_vga_k4", equal_to_single=True,
+        candidates=len(ngot), launches=json.dumps(nl))
+    release_programs(nsd, ndet)
+    # the 8-strip frame's times beside the single-device frame's
+    sp = s8._program
+    one = pdet.program(1, pdet.cap)
+    ph = photo[None]
+    rec["strip_times"] = dict(
+        strips_host_ms=host_ms(lambda: sp.read(sp.run(ph)), 10),
+        single_host_ms=host_ms(lambda: one.read(one.run(ph)), 10),
+        strips_device_ms=replay_ms(sp, 10),
+        single_device_ms=replay_ms(one, 10),
+        strips_nodes=graph_nodes(sp), single_nodes=graph_nodes(one),
+        strips_cap=s8.det.cap, single_cap=pdet.cap)
+    rec["strips"] = strips
+    say("mesh", case="strip_times", **rec["strip_times"])
+    release_programs(pdet)
+
+    # ---- shard_scales: the demo configuration over 4 positions ----------
+    dspec = ct.load_cascade(DEMO_CASCADE)
+    sc4 = ct.ScaleCascadeDetector(dspec, VGA, device="cuda", **DEMO_KNOBS)
+    sc4.cap = sc_det.cap
+    sc4.shard_scales(mesh_devices(4))
+    (c4, o4), scl = count_run(counters, lambda: sc4.candidates(sc_frame))
+    c1, o1 = sc_det.candidates(sc_frame)
+    need(np.array_equal(c4, c1) and o4 == o1 and len(c1) > 0,
+         "shard_scales: candidates differ from the single-device detector")
+    need(scl["compact"] > 0, f"shard_scales: no compaction kernel: {scl}")
+    d4 = sc4.detect(sc_frame, MIN_NEIGHBORS)
+    d1 = sc_det.detect(sc_frame, MIN_NEIGHBORS)
+    need(np.array_equal(d4.boxes, d1.boxes), "shard_scales: boxes differ")
+    sc4.detect(sc_frame, MIN_NEIGHBORS)
+    rec["shard_scales"] = dict(
+        positions=len(mesh_devices(4)), candidates=len(c4),
+        boxes=len(d4.boxes), launches=scl,
+        sharded_ms=best_ms(sc4, sc_frame), single_ms=best_ms(sc_det,
+                                                             sc_frame),
+        sharded_device_ms=replay_ms(sc4._program, 3),
+        single_device_ms=replay_ms(sc_det.program(), 3),
+        sharded_nodes=graph_nodes(sc4._program),
+        single_nodes=graph_nodes(sc_det.program()))
+    say("mesh", case="shard_scales_demo", equal_to_single=True,
+        **{a: json.dumps(v) if isinstance(v, dict) else v
+           for a, v in rec["shard_scales"].items()})
+    rec["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    release_programs(sc4, single, bm, s8)
+    rec["seconds"] = time.perf_counter() - t_all
+    say("mesh", case="done", seconds=round(rec["seconds"], 3),
+        reserved_gb=rec["reserved_gb"])
+    tail2 = ("haar_front", "compact", "haar_tail2")
+    return rec, [("batch8_" + CASCADE, single, frames8, tail2),
+                 ("mesh_batch8x8", bm, frames8, tail2),
+                 ("mesh_strips8", s8, photo, tail2),
+                 ("mesh_shard_scales4", sc4, sc_frame, ("compact",))]
 
 
 def main() -> int:
@@ -2152,12 +2432,7 @@ def main() -> int:
                 "chain": chain, "tail_rows": tail_rows}
 
     def counted(fn):
-        """``fn()`` with every count from 0; its result and the wrappers'
-        counts (``read_counts``: eager launches, a program's warm-up
-        included)."""
-        reset_counts(counters)
-        out = fn()
-        return out, read_counts(counters)
+        return count_run(counters, fn)
 
     def drive(det, gray):
         """One detect() through the entry point with every count from 0;
@@ -2541,6 +2816,8 @@ def main() -> int:
         "demo": [sc_det.candidates(sc_frame)[0]]})
     oracle = check_oracle(ct)
     demo = check_demo(xml["paths"][DEMO_CASCADE])
+    mesh, mesh_drives = check_mesh(ct, counters, spec, stack8, photo,
+                                   sc_det, sc_frame)
     xdet = ct.PyramidDetector(ct.load_cascade(xml["paths"][CASCADE]), SHAPE,
                               device="cuda", **KNOBS)
 
@@ -2601,7 +2878,8 @@ def main() -> int:
                                "tail_rows")),
             ("scale_cascade", sc_det, sc_frame, ("compact",)),
             ("xml_" + CASCADE, xdet, gray, ("haar_front", "compact",
-                                            "haar_tail2"))):
+                                            "haar_tail2")),
+            *mesh_drives):
         mdet.detect(img, MIN_NEIGHBORS)
         _, main[what] = profiled_drive(
             counters, lambda: mdet.detect(img, MIN_NEIGHBORS), what)
@@ -2637,6 +2915,12 @@ def main() -> int:
              launches=path_of[k][k], **entry[k])
         for k, src, rep in KERNELS]}
     record["main_path_runs"] = main
+    # launches a frame of 1080p frontalface_alt at batch 8: one graph of
+    # the batch, and the 8-position mesh (a graph a position)
+    record["launches_a_frame"] = {
+        w: {k: main[w]["launches"][k] / BATCH for k in KERNEL_SYMBOLS}
+        for w in ("batch8_" + CASCADE, "mesh_batch8x8")}
+    say("main_path", launches_a_frame=json.dumps(record["launches_a_frame"]))
     record["launches_by_path"] = paths
     record["launches_counted_as"] = (
         "kernels line: the profiler's kernel records of each main path's "
@@ -2662,6 +2946,7 @@ def main() -> int:
     record["native"] = native
     record["oracle"] = oracle
     record["demo"] = demo
+    record["mesh"] = mesh
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

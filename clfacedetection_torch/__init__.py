@@ -15,8 +15,10 @@ per batch size or per scale loop at its current cap.  A sixth kernel, the
 op-chain microbenchmark, serves the tool ``tools/mb_vpu3.py``.  The
 host's grouping runs a C++ twin of the numpy specification, built with
 ``g++`` at first use beside a C++ window oracle (``native/``);
-``tools/demo.py`` is the reference demo's counterpart.  Imports torch
-and numpy, never jax.
+``tools/demo.py`` is the reference demo's counterpart.  The
+multi-device layer (``runtime/mesh.py``, ``parallel/``) shards batches,
+a frame's canvas rows or scale-cascade mode's scales over a mesh of
+devices driven from one process.  Imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"

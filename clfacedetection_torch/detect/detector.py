@@ -34,11 +34,13 @@ host from the frame to the packed array, so in float32 on the card
 ``candidates`` runs the whole of it, prep and Canny included, as one
 captured CUDA graph per cap (``runtime/program.py``; JAX's
 ``_jit_scales``).  find-biggest-object stays eager: it reads every
-scale back.
+scale back.  ``shard_scales`` runs scale ``i`` on the ``i % k``-th of k
+devices (or streams of one card) and merges in scale order.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -288,6 +290,10 @@ class ScaleCascadeDetector:
         self._fbo_acap: Optional[int] = None
         self._program = None
         self._canny_steps = _CANNY_STEPS
+        # shard_scales: scale i runs on _scale_devices[i % k], with this
+        # detector's tables on that device (_on)
+        self._scale_devices: Optional[Tuple[torch.device, ...]] = None
+        self._twins: Dict[torch.device, "ScaleCascadeDetector"] = {}
         if self.n_scales == 0:
             return
 
@@ -331,6 +337,73 @@ class ScaleCascadeDetector:
             if c.has_tilted else None)
         self._scale = [self._scale_tables(k, grids[k], sc[k])
                        for k in range(self.n_scales)]
+
+    # ---------------------------------------------------------- devices
+    def shard_scales(self, devices) -> "ScaleCascadeDetector":
+        """Split the scales across ``devices`` round-robin (JAX
+        ``detector.py:329-353``): scale ``i`` runs on ``devices[i % k]``
+        with the tables made again on that device; the integral planes
+        go to each position once a frame, each position packs its own
+        scales, and the host merges them in scale order, so the results
+        equal the single-device path's.  A device may repeat: on one card
+        the frame's program forks the positions onto streams of their
+        own.  find-biggest-object stays on the detector's device."""
+        # imported here: the runtime package imports the detect package
+        from ..runtime.mesh import Mesh
+        devs = list(devices)
+        if not devs:
+            raise ValueError("need at least one device")
+        devs = Mesh(devs, ("scales",)).devices
+        if devs[0].type != self.device.type:
+            raise ValueError(f"scale devices {[str(d) for d in devs]} are "
+                             f"not of the detector's type {self.device}")
+        self._scale_devices = devs
+        # a program made before the split runs every scale here: drop it
+        if self._program is not None:
+            self._program.release()
+            self._program = None
+        if self.n_scales:
+            for d in devs:
+                self._on(d)
+        return self
+
+    def _on(self, device) -> "ScaleCascadeDetector":
+        """This detector with its tables on ``device`` (made once a
+        device; itself on its own)."""
+        from ..runtime.program import indexed
+        device = indexed(device)
+        if device == indexed(self.device):
+            return self
+        twin = self._twins.get(device)
+        if twin is None:
+            def mv(t):
+                return t.to(device) if isinstance(t, torch.Tensor) else t
+
+            twin = copy.copy(self)
+            twin.device = device
+            twin._program, twin._twins = None, {}
+            twin._clf = tuple(mv(t) for t in self._clf)
+            twin._stage_thr = mv(self._stage_thr)
+            twin._stage_index = {}
+            twin._off_path = mv(self._off_path)
+            twin._tilt12 = mv(self._tilt12)
+            twin._scale = [dataclasses.replace(g, **{
+                f.name: mv(getattr(g, f.name))
+                for f in dataclasses.fields(g)}) for g in self._scale]
+            self._twins[device] = twin
+        return twin
+
+    def _merge(self, a: np.ndarray) -> np.ndarray:
+        """Rows of a sharded frame's outputs (each position's scales in
+        turn) in scale order; unsharded, ``a`` itself."""
+        if self._scale_devices is None:
+            return a
+        k = len(self._scale_devices)
+        order = np.concatenate([np.arange(j, self.n_scales, k)
+                                for j in range(k)])
+        out = np.empty_like(a)
+        out[order] = a
+        return out
 
     def _scale_tables(self, k: int, grid, sc) -> _Scale:
         ystep, xs, ys = grid
@@ -712,9 +785,30 @@ class ScaleCascadeDetector:
         return d["packed"].cpu().numpy(), (d["sy"], d["sx"], d["ok"])
 
     def _scales_device(self, planes, cap: int) -> Dict[str, torch.Tensor]:
-        return self._pack_device([self._per_scale(planes, k, cap)
-                                  for k in range(self.n_scales)],
-                                 cap, min(cap, ACCEPT_CAP))
+        """Every scale and the pack.  With ``shard_scales`` each position
+        takes its scales on its device and stream and packs them, and the
+        packed rows come to this detector's device position by position
+        (``_merge`` puts them in scale order)."""
+        acap = min(cap, ACCEPT_CAP)
+        devs = self._scale_devices
+        if devs is None:
+            return self._pack_device([self._per_scale(planes, k, cap)
+                                      for k in range(self.n_scales)],
+                                     cap, acap)
+        from ..runtime.mesh import Fork
+        fork = Fork(devs, home=self.device)
+        parts = []
+        for j, d in enumerate(devs[:self.n_scales]):
+            with fork.at(j):
+                det = self._on(d)
+                pl = {n: v.to(d) if isinstance(v, torch.Tensor) else v
+                      for n, v in planes.items()}
+                out = det._pack_device(
+                    [det._per_scale(pl, k, cap)
+                     for k in range(j, self.n_scales, len(devs))], cap, acap)
+                parts.append({n: fork.home(t, j) for n, t in out.items()})
+        fork.join()
+        return {n: torch.cat([p[n] for p in parts]) for n in parts[0]}
 
     def _frame_device(self, gray: torch.Tensor, cap: int,
                       canny_steps: int) -> Dict[str, torch.Tensor]:
@@ -772,7 +866,7 @@ class ScaleCascadeDetector:
             if self.do_canny_pruning and not out["canny_done"][0]:
                 self._canny_steps *= 4
                 continue
-            packed = out["packed"]
+            packed = self._merge(out["packed"])
             if (packed[:, 0] > self.cap).any() and self.cap < lattice:
                 self.cap = min(self.cap * 4, lattice)
                 continue
@@ -792,8 +886,8 @@ class ScaleCascadeDetector:
                 if host is None:
                     full = self._frame_device(self.put(frame), self.cap,
                                               self._canny_steps)
-                    host = [full[n].cpu().numpy() for n in ("sy", "sx",
-                                                            "ok")]
+                    host = [self._merge(full[n].cpu().numpy())
+                            for n in ("sy", "sx", "ok")]
                 m = host[2][k]
                 sy, sx = host[0][k][m], host[1][k][m]
             boxes.append(np.stack([sx, sy, np.full_like(sx, self.win_w[k]),

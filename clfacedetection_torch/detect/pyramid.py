@@ -13,7 +13,10 @@ Per batch of frames the device pipeline is
     -> accept compaction (kernel) -> ONE packed int32 readback
        [n_surv, n_acc, acc_y[acap], acc_x[acap]] per frame
 
-with no host synchronisation inside it.  On the card the float32 pipeline
+with no host synchronisation inside it: JAX's three phases,
+``_front_device`` (prep and front), ``_compact_device`` and
+``_tail_device`` (tail and packing), which the row strips and the
+sharded API call apart.  On the card the float32 pipeline
 runs as a captured program (``runtime/program.py``): a CUDA graph per
 batch size at the current cap, replayed, its packed output copied to a
 pinned host slot (JAX's ``_jit_pipeline``).  Three survivor tails, as in the
@@ -36,6 +39,7 @@ host to the card on every call, which a graph cannot hold.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple
@@ -52,7 +56,7 @@ from ..ops.haar_front import front_plain, haar_front
 from ..ops.haar_tail import haar_tail, tail_values_plain
 from ..ops.haar_tail2 import haar_tail2, tail2_plain
 from ..ops.integral import IntegralImages, integral_images
-from ..ops.resize import resize_bilinear_u8, resize_plan
+from ..ops.resize import ResizePlan, resize_bilinear_u8, resize_plan
 from ..ops.stencil import build_stencils, stencil_values
 from ..ops.tail_rows import tail_rows, tail_rows_plain
 from .detector import (STRATEGIES, DetectionResult, _build_clf_tables,
@@ -262,8 +266,11 @@ class PyramidDetector:
                                       min_size, max_size)
         self.n_levels = len(self.plan.levels)
         # ONE program (its graph's memory pool held at its peak), for the
-        # batch size and cap it was made for
+        # batch size and cap it was made for, on mesh position ``slot``'s
+        # stream (runtime/mesh.py); its twins at other positions (``_on``)
         self._program = None
+        self.slot = 0
+        self._twins: Dict[tuple, "PyramidDetector"] = {}
         if self.n_levels == 0:
             return
 
@@ -320,21 +327,43 @@ class PyramidDetector:
                                with_tilted=self.compiled.has_tilted)
 
     # --------------------------------------------------------- pipeline
-    def _detect_device(self, frames: torch.Tensor, cap: int,
-                       plain: bool = False) -> Dict[str, torch.Tensor]:
-        """The device pipeline over [B, H, W] uint8 frames on
-        ``self.device``; no host synchronisation.  ``plain`` runs the
-        plain PyTorch versions of the kernels on the same device (the
-        reference a card run is checked against); float64 always does."""
-        plain = plain or self.dtype == torch.float64
-        front_fn = front_plain if plain else haar_front
+    def _plain(self, plain: bool) -> bool:
+        return plain or self.dtype == torch.float64
+
+    def _front_device(self, frames: torch.Tensor, plain: bool = False
+                      ) -> Dict[str, object]:
+        """Phase 1 (JAX ``_front_device``): canvas, integral planes and the
+        dense front over [B, H, W] uint8 frames: ``planes``
+        (``IntegralImages``), ``vnf`` [B, Hv, Wv] and ``front`` bool
+        [B, Hv * Wv]."""
+        front_fn = front_plain if self._plain(plain) else haar_front
+        ii = self._prep_planes(frames)
+        front, vnf = front_fn(ii.sum, ii.sq_hi, ii.sq_lo, self._visit,
+                              self.table, self.front_k, self.dtype,
+                              ii.tilted)
+        return dict(planes=ii, vnf=vnf,
+                    front=front.reshape(frames.shape[0], -1))
+
+    def _compact_device(self, front_flat: torch.Tensor, cap: int,
+                        plain: bool = False):
+        """Phase 2 (JAX ``_compact_device``): (surv_idx int32 [B, cap],
+        n_surv int32 [B]) from the flat front; unused slots hold the flag
+        count ``Hv * Wv``."""
+        compact_fn = compact_plain if self._plain(plain) else compact
+        return compact_fn(front_flat, cap)
+
+    def _tail_device(self, s: torch.Tensor, tilted: Optional[torch.Tensor],
+                     vnf: torch.Tensor, surv_idx: torch.Tensor,
+                     n_surv: torch.Tensor, cap: int, plain: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+        """Phase 3 (JAX ``_tail_device``): the survivor tail over the slots
+        ``surv_idx`` (a slot holding ``Hv * Wv`` is padding) of the sum
+        (and tilted) plane and the vnf map, then the accept compaction
+        into the packed array [B, 2 + 2*acap] (and the ROC's with
+        ``output_levels``)."""
+        plain = self._plain(plain)
         compact_fn = compact_plain if plain else compact
-        B = frames.shape[0]
         n = self.hv * self.wv
-        s, hi, lo, tilted = self._prep_planes(frames)
-        front, vnf = front_fn(s, hi, lo, self._visit, self.table,
-                              self.front_k, self.dtype, tilted)
-        surv_idx, n_surv = compact_fn(front.reshape(B, -1), cap)
         if self.use_tail2:
             tail_fn = tail2_plain if plain else haar_tail2
             rows = tail_fn(s, vnf, surv_idx, self.table, self.front_k)
@@ -366,6 +395,19 @@ class PyramidDetector:
                 rows[..., 3].gather(1, sel)], dim=1)
             out.update(ok_roc=ok_roc, rows=rows)
         return out
+
+    def _detect_device(self, frames: torch.Tensor, cap: int,
+                       plain: bool = False) -> Dict[str, torch.Tensor]:
+        """The device pipeline over [B, H, W] uint8 frames on
+        ``self.device``, the three phases in turn; no host
+        synchronisation.  ``plain`` runs the plain PyTorch versions of the
+        kernels on the same device (the reference a card run is checked
+        against); float64 always does."""
+        f = self._front_device(frames, plain)
+        surv_idx, n_surv = self._compact_device(f["front"], cap, plain)
+        ii = f["planes"]
+        return self._tail_device(ii.sum, ii.tilted, f["vnf"], surv_idx,
+                                 n_surv, cap, plain)
 
     def _tail_v1(self, s, tilted, vnf, surv_idx, plain: bool = False):
         """The v1 tail: every node's value (``haar_tail``, or the stencil
@@ -449,8 +491,35 @@ class PyramidDetector:
             (B, self.H, self.W), self.device,
             graph=(self.device.type == "cuda"
                    and self.dtype == torch.float32),
-            readback=names, key=(B, cap))
+            readback=names, key=(B, cap), slot=self.slot)
         return self._program
+
+    def _on(self, device, slot: int = 0) -> "PyramidDetector":
+        """This detector at a mesh position: the same plan, tables and
+        knobs, its tensors on ``device`` and its program on the stream of
+        position ``slot``; made once a (device, slot), and itself at its
+        own.  Its ``cap`` is the caller's to keep."""
+        # imported here: the runtime package imports this module
+        from ..runtime.program import indexed
+        device = indexed(device)
+        key = (device, slot)
+        if key == (indexed(self.device), self.slot):
+            return self
+        twin = self._twins.get(key)
+        if twin is None:
+            twin = copy.copy(self)
+            twin.device, twin.slot = device, slot
+            twin._program, twin._twins = None, {}
+            if self.n_levels:
+                twin._visit = self._visit.to(device)
+                twin._resize = {i: ResizePlan(*(t.to(device) for t in p))
+                                for i, p in self._resize.items()}
+                if self.strategy == "direct":
+                    twin._stencils = tuple(None if m is None else
+                                           m.to(device)
+                                           for m in self._stencils)
+            self._twins[key] = twin
+        return twin
 
     def readback(self, res, cap: int) -> List[Tuple[np.ndarray, bool]]:
         """(candidates, overflow) per frame from a run: a program's

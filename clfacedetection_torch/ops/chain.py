@@ -117,9 +117,10 @@ def chain(x: torch.Tensor, body: str, trips: int,
                          "rows with 16-byte loads)")
     gh = x.shape[0]
     out = torch.empty((gh, gw), dtype=torch.float32, device=x.device)
-    err = kernels.lib().clfd_chain(
-        x.data_ptr(), out.data_ptr(), gh, gw, _TRIPS[body][1], int(trips),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = kernels.lib().clfd_chain(
+            x.data_ptr(), out.data_ptr(), gh, gw, _TRIPS[body][1], int(trips),
+            torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check("clfd_chain", err)
     kernels.count(chain)
     return out

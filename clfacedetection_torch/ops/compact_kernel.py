@@ -106,9 +106,10 @@ def compact(flags: torch.Tensor, cap: int):
     out = torch.empty((B, cap), dtype=torch.int32, device=dev)
     total = torch.empty((B,), dtype=torch.int32, device=dev)
     vec = int(flags.data_ptr() % 16 == 0 and n % 16 == 0)
-    err = kernels.lib().clfd_compact(
-        flags.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        total.data_ptr(), n, -(-n // TILE), cap, B, vec, stream)
+    with torch.cuda.device(dev):
+        err = kernels.lib().clfd_compact(
+            flags.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            total.data_ptr(), n, -(-n // TILE), cap, B, vec, stream)
     kernels.check("clfd_compact", err)
     kernels.count(compact)
     return out, total

@@ -244,14 +244,15 @@ def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
     ya, xa, yb, xb = table.equ
     # the kernel stages the tilted plane when it gets one, as
     # front_smem_bytes counts it: only for a cascade with tilted nodes
-    err = kernels.lib().clfd_haar_front(
-        sum_.data_ptr(), sq_hi.data_ptr(), sq_lo.data_ptr(),
-        tilted.data_ptr() if table.has_tilted else None, visit.data_ptr(),
-        tab.data_ptr(), front.data_ptr(), vnf.data_ptr(),
-        B, hv, wv, hp, wp, table.n_stages, front_k, words, table.max_dy,
-        table.max_dx, ya, xa, yb, xb, int(stump),
-        ctypes.c_float(float(np.float32(table.inv_area))),
-        torch.cuda.current_stream(sum_.device).cuda_stream)
+    with torch.cuda.device(sum_.device):
+        err = kernels.lib().clfd_haar_front(
+            sum_.data_ptr(), sq_hi.data_ptr(), sq_lo.data_ptr(),
+            tilted.data_ptr() if table.has_tilted else None, visit.data_ptr(),
+            tab.data_ptr(), front.data_ptr(), vnf.data_ptr(),
+            B, hv, wv, hp, wp, table.n_stages, front_k, words, table.max_dy,
+            table.max_dx, ya, xa, yb, xb, int(stump),
+            ctypes.c_float(float(np.float32(table.inv_area))),
+            torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_front", err)
     kernels.count(haar_front)
     return front, vnf

@@ -128,11 +128,12 @@ def haar_tail(sum_: torch.Tensor, tilted: Optional[torch.Tensor],
     nn = table.n_clf * table.T
     out = torch.empty((B, cap, nn), dtype=torch.float32, device=sum_.device)
     tab = table.device_buffer(sum_.device, nodes=True)
-    err = kernels.lib().clfd_haar_tail(
-        sum_.data_ptr(), tilted.data_ptr() if table.has_tilted else None,
-        surv_idx.data_ptr(), tab.data_ptr(), out.data_ptr(), B, hv, wv, hp,
-        wp, cap, nn, ph, pw,
-        torch.cuda.current_stream(sum_.device).cuda_stream)
+    with torch.cuda.device(sum_.device):
+        err = kernels.lib().clfd_haar_tail(
+            sum_.data_ptr(), tilted.data_ptr() if table.has_tilted else None,
+            surv_idx.data_ptr(), tab.data_ptr(), out.data_ptr(), B, hv, wv, hp,
+            wp, cap, nn, ph, pw,
+            torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_tail", err)
     kernels.count(haar_tail)
     return out

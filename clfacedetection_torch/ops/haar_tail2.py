@@ -118,11 +118,13 @@ def haar_tail2(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
     out = torch.empty((B, cap, 4), dtype=torch.float32, device=sum_.device)
     tab = table.device_buffer(sum_.device, stumps=True)
     max_cnt = max(1, int(table.stage_cnt[front_k:].max(initial=0)))
-    err = kernels.lib().clfd_haar_tail2(
-        sum_.data_ptr(), vnf.data_ptr(), surv_idx.data_ptr(), tab.data_ptr(),
-        out.data_ptr(), B, hv, wv, hp, wp, cap, table.n_stages, front_k,
-        table.max_dy + 1, table.max_dx + 1, max_cnt,
-        torch.cuda.current_stream(sum_.device).cuda_stream)
+    with torch.cuda.device(sum_.device):
+        err = kernels.lib().clfd_haar_tail2(
+            sum_.data_ptr(), vnf.data_ptr(), surv_idx.data_ptr(),
+            tab.data_ptr(), out.data_ptr(), B, hv, wv, hp, wp, cap,
+            table.n_stages, front_k,
+            table.max_dy + 1, table.max_dx + 1, max_cnt,
+            torch.cuda.current_stream(sum_.device).cuda_stream)
     kernels.check("clfd_haar_tail2", err)
     kernels.count(haar_tail2)
     return out

@@ -218,13 +218,14 @@ def tail_rows(values: torch.Tensor, svnf: torch.Tensor,
     out = torch.empty((B, cap, 4), dtype=torch.float32, device=dev)
     tab = table.device_buffer(dev, rows=True)
     pb = _path_buffer(table, paths, dev) if paths is not None else None
-    err = kernels.lib().clfd_tail_rows(
-        values.data_ptr(), svnf.data_ptr(), surv_idx.data_ptr(),
-        tab.data_ptr(), pb.data_ptr() if pb is not None else None,
-        out.data_ptr(), B, cap, nn, n, S, table.T,
-        0 if paths is not None else min(front_k, S),
-        len(paths) if paths is not None else 0, n_leaves,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = kernels.lib().clfd_tail_rows(
+            values.data_ptr(), svnf.data_ptr(), surv_idx.data_ptr(),
+            tab.data_ptr(), pb.data_ptr() if pb is not None else None,
+            out.data_ptr(), B, cap, nn, n, S, table.T,
+            0 if paths is not None else min(front_k, S),
+            len(paths) if paths is not None else 0, n_leaves,
+            torch.cuda.current_stream(dev).cuda_stream)
     kernels.check("clfd_tail_rows", err)
     kernels.count(tail_rows)
     return out

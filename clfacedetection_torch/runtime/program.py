@@ -43,26 +43,37 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Handle", "Program", "program_stream"]
+__all__ = ["Handle", "Program", "indexed", "program_stream"]
 
 # pinned staging buffers, and pinned readback slots made up front
 _DEPTH = 2
 
-_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_STREAMS: Dict[tuple, "torch.cuda.Stream"] = {}
 
 
-def program_stream(device) -> "torch.cuda.Stream":
-    """The one stream every program of a device captures and replays on:
-    replays of different programs stay ordered, and the compaction's
-    scratch, kept per stream, is made once."""
+def indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card)."""
     device = torch.device(device)
-    if device.index is None:
+    if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    s = _STREAMS.get(device)
+    return device
+
+
+def program_stream(device, slot: int = 0) -> "torch.cuda.Stream":
+    """The stream every program of a device captures and replays on:
+    replays of different programs stay ordered, and the compaction's
+    scratch, kept per stream, is made once.  ``slot`` is a mesh position
+    (``runtime/mesh.py``): k positions on one card replay on k streams,
+    so that they overlap as k cards would; a one-device caller keeps slot
+    0."""
+    device = indexed(device)
+    s = _STREAMS.get((device, slot))
     if s is None:
         # high priority: a pool of its own, so that no stream a caller
         # takes from the default pool is this one
-        s = _STREAMS[device] = torch.cuda.Stream(device, priority=-1)
+        with torch.cuda.device(device):
+            s = torch.cuda.Stream(device, priority=-1)
+        _STREAMS[(device, slot)] = s
     return s
 
 
@@ -101,13 +112,15 @@ class Program:
     """``fn`` (one uint8 tensor of ``shape`` -> a dict of outputs) as a
     program on ``device``: a CUDA graph when ``graph`` (which needs a CUDA
     device), else the eager function.  ``readback`` names the outputs the
-    host reads; ``key`` is the caller's (e.g. the batch size and cap)."""
+    host reads; ``key`` is the caller's (e.g. the batch size and cap);
+    ``slot`` the mesh position whose stream it runs on."""
 
     replays = 0
 
     def __init__(self, fn: Callable[[torch.Tensor], dict],
                  shape: Sequence[int], device, graph: bool,
-                 readback: Sequence[str] = ("packed",), key=None):
+                 readback: Sequence[str] = ("packed",), key=None,
+                 slot: int = 0):
         self.fn = fn
         self.shape = tuple(int(s) for s in shape)
         self.device = torch.device(device)
@@ -123,7 +136,7 @@ class Program:
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not "
                              f"{self.device}")
-        self.stream = program_stream(self.device)
+        self.stream = program_stream(self.device, slot)
         self.input = torch.zeros(self.shape, dtype=torch.uint8,
                                  device=self.device)
         self._stage = [torch.empty(self.shape, dtype=torch.uint8,

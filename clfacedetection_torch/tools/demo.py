@@ -16,7 +16,10 @@ cpu``:
 * batched       = ``BatchedPyramidDetector`` at batch 8, the webcam
   loop's frames/s (main.cpp:104-125);
 * multi-cascade = ``MultiCascadeBatchedDetector`` of the cascade and
-  ``haarcascade_profileface`` in one program.
+  ``haarcascade_profileface`` in one program;
+* row-strip     = ``StripShardedPyramidDetector`` over ``min(cards, 8)``
+  cards, or 8 positions of one card (of the CPU with ``--device cpu``),
+  box for box against the single-device detector.
 
 Each result is written as an annotated PPM file and printed with its
 ms/frame and boxes; a mode's time is ``time_torch``'s, the mean of 5
@@ -87,9 +90,12 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    from .. import CascadeClassifier
+    import torch
+
+    from .. import CascadeClassifier, PyramidDetector
     from ..models import load_cascade
-    from ..runtime import (BatchedPyramidDetector,
+    from ..parallel import StripShardedPyramidDetector
+    from ..runtime import (BatchedPyramidDetector, Mesh,
                            MultiCascadeBatchedDetector)
     from ..utils import ElapseTime, synth_scene, time_torch
 
@@ -162,8 +168,24 @@ def main(argv: Optional[List[str]] = None,
     log(f"multi-cascade fused (x{len(specs)}, batch {BATCH}): "
         f"{ms:.2f} ms/frame = {1000 / ms:.1f} fps   " +
         ", ".join(f"{n}={c}" for n, c in counts.items()))
-    log("row-strip sharded: not run (multi-GPU sharding is not in this "
-        "package yet)")
+
+    # the latency axis: one frame's canvas scan rows in strips over a mesh
+    # (the reference CPU baseline's TBB strips, tempcv.cpp:1305-1311);
+    # one card holds 8 positions of itself, each on a stream of its own
+    n = torch.cuda.device_count() if dev == "cuda" else 1
+    devices = ([torch.device("cuda", i) for i in range(min(n, 8))]
+               if n > 1 else [torch.device(dev)] * 8)
+    pdet = PyramidDetector(spec, img.shape, min_size=msz, device=dev)
+    ref_c, _ = pdet.candidates(img)
+    sdet = StripShardedPyramidDetector(pdet, Mesh(devices, ("strips",)))
+    got_c, _ = sdet.candidates(img)
+    match = bool(np.array_equal(got_c, ref_c))
+    out["strips"] = {"k": len(devices), "devices": len(set(devices)),
+                     "match": match, "candidates": len(got_c)}
+    log(f"row-strip sharded ({len(devices)} strips on "
+        f"{len(set(devices))} device(s)): "
+        f"{'box-for-box MATCH' if match else 'MISMATCH'} "
+        f"({len(got_c)} candidates)")
     return out
 
 

@@ -190,6 +190,7 @@ def test_port_runs_without_jax():
         import sys
         sys.modules["jax"] = None
         import clfacedetection_torch as ct
+        import clfacedetection_torch.parallel
         from clfacedetection_torch.utils import synth_face
         assert not any(m == "jax" or m.startswith(("jax.",
                        "clfacedetection_tpu")) for m in sys.modules
