@@ -30,7 +30,8 @@ points and times kernels and paths with CUDA events:
   docs/PARITY.md bounds, timed; the ROC output (``candidates_with_levels``)
   of frontalface_alt (tail2) and frontalface_alt2 (the v1 tail), its packed
   readback bit-equal to the plain path's; float64 on the card (the plain
-  versions) box for box with the CPU at VGA;
+  front and tails, the compaction kernel) box for box with the CPU at
+  VGA;
 * the JAX bench's scene: ``photo_scene`` at 1080p through frontalface_alt's
   ``detect``, equal to the plain path, its front survivors printed beside
   the JAX's 18,388;
@@ -88,7 +89,23 @@ stream and one that regrows its cap in the middle, BASELINE config 5
 graph against each cascade's own detector with one copy to the host a
 batch, and scale-cascade mode's demo configuration; it prints eager and
 graph ms a frame, capture and instantiation times, graph nodes and the
-memory reserved.
+memory reserved.  Its float64 case holds the float64 graphs (the plain
+front and tails, the compaction kernel) against their eager paths byte
+for byte and against the CPU's float64 candidates at VGA: frontalface_alt
+at batch 1 and 8, frontalface_alt2, frontalface_alt_tree at full depth,
+the ROC output of frontalface_alt and the 4-strip program; scale-cascade
+mode's demo in float64 is held the same way in its phase.
+
+The ``flops`` phase runs ``PyramidDetector.stage_entering_counts`` on
+1080p ``photo_scene`` (the front kernel once a depth, 22 launches) and
+checks its count at stage 10 against the front-10 graph's survivors
+(18,389) and its last count against a full-depth front's candidates;
+``utils/flops.py``'s counts are printed beside the graph's device time.
+Early on, the ``context`` line times the compaction's eager call with the
+wrappers' old device context (entered on every launch) and with
+``kernels.on_device`` (entered only for another card), and the ``smem``
+line checks that launches on another stream of a card that is set up do
+no shared-memory setup (``csrc/launch.cuh``).
 
 Four phases then take cascade files and the host's native code: ``xml``
 writes every zoo cascade as OpenCV XML (the port's writer), loads each by
@@ -207,15 +224,17 @@ SC_PATHS = (("haarcascade_frontalface_alt2", None, False, "photo"),
 # find-biggest-object against the golden path, a per-window Python loop:
 # depth cut as in the tests
 FBO_STAGES = 6
-# H100 SXM data-sheet peaks (dense): HBM bytes/s, and 32-bit operations/s
-# outside the tensor cores (the kernels' integer and float32 arithmetic;
-# the data sheet counts an FMA as two, so adds, multiplies, compares and
-# selects issue at half this rate: the mb_vpu3 phase measures them)
-PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
 # the JAX bench's survivors on photo_scene at 1080p, front_k 10 (TPU v5e
 # run of the JAX package, docs/PERF.md:57)
 JAX_PHOTO_SURVIVORS = 18388
+# the card's front-10 survivors there (the front kernel, equal to
+# front_plain bit for bit; chip_smoke.py runs on the H100 since the front
+# was ported)
+PHOTO_SURVIVORS = 18389
+# the device-context measurement: back-to-back compaction calls a round
+CONTEXT_REPS = 200
+# the float64 programs: the strip program's positions (of card 0)
+F64_STRIPS = 4
 CHAIN_TRIPS = (4, 16)
 # the programs phase: batches of the batch-8 stream, the cap a regrowing
 # stream starts at, and BASELINE config 5's cascades
@@ -300,8 +319,9 @@ def profiled_drive(counters, fn, what: str):
     """``fn()``, a drive of a main path, under ``torch.profiler`` with
     every count from 0.  Returns its result and each kernel's executions
     on the card, from the profiler's kernel records by the kernel's
-    symbol (a graph replay's launches included), beside the wrappers'
-    counts (eager launches) and the programs' replays."""
+    symbol (a graph replay's launches included) and their device ms
+    (the records' durations summed), beside the wrappers' counts (eager
+    launches) and the programs' replays."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -313,14 +333,21 @@ def profiled_drive(counters, fn, what: str):
         out = fn()
         torch.cuda.synchronize()
     wrapper = read_counts(counters)
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    launches = {k: sum(1 for n in names
-                       if re.search(rf"(?:^|[\s:\d]){sym}(?:[<(IE]|$)", n))
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = [e.name for e in events]
+
+    def mine(sym, name):
+        return re.search(rf"(?:^|[\s:\d]){sym}(?:[<(IE]|$)", name)
+
+    launches = {k: sum(1 for n in names if mine(sym, n))
                 for k, sym in KERNEL_SYMBOLS.items()}
+    device_ms = {k: sum(e.time_range.end - e.time_range.start
+                        for e in events if mine(sym, e.name)) / 1e3
+                 for k, sym in KERNEL_SYMBOLS.items()}
     need(all(launches[k] >= wrapper[k] for k in launches),
          f"{what}: the profiler saw fewer launches {launches} than the "
          f"wrappers counted {wrapper}")
-    return out, dict(launches=launches, wrapper=wrapper,
+    return out, dict(launches=launches, device_ms=device_ms, wrapper=wrapper,
                      replays=Program.replays, device_records=len(names))
 
 
@@ -390,10 +417,22 @@ def max_abs_err(a, b) -> float:
                default=0.0)
 
 
+def peaks():
+    """The H100 SXM data-sheet peaks (dense) that the port keeps in
+    ``utils/flops.py``: HBM bytes/s, and 32-bit operations/s outside the
+    tensor cores (the kernels' integer and float32 arithmetic; the data
+    sheet counts an FMA as two, so adds, multiplies, compares and selects
+    issue at half this rate: the mb_vpu3 phase measures them)."""
+    from clfacedetection_torch.utils.flops import (PEAK_BYTES,
+                                                   PEAK_FLOPS_F32_HIGHEST)
+    return PEAK_BYTES, PEAK_FLOPS_F32_HIGHEST
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: bytes over the HBM rate or
     operations over the 32-bit rate, whichever is larger."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    peak_bytes, peak_ops = peaks()
+    tb, to = nbytes / peak_bytes * 1e3, ops / peak_ops * 1e3
     return dict(bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations")
 
@@ -1400,7 +1439,29 @@ def check_scale_cascade(ct, counters) -> dict:
          "demo f64: the card's boxes differ from the CPU's")
     demo_rec["f64_candidates"] = len(r64.candidates)
     demo_rec["f64_parity_to_f32"] = parity(r3, r64)
-    del g64
+    # the float64 frame from its CUDA graph (the programs phase's float64
+    # case of scale-cascade mode): byte-equal to the eager frame
+    only_compact("demo f64", demo_rec["f64_launches"])
+    p64g = g64.program()
+    need(p64g.graphed and p64g.graph is not None,
+         "demo f64: no CUDA graph")
+
+    def eager64():
+        return g64._frame_device(g64.put(demo), g64.cap, g64._canny_steps)[
+            "packed"].cpu().numpy()
+
+    need(same_bytes(p64g.read(p64g.run(demo))["packed"], eager64()),
+         "demo f64: the graph's packed array differs from the eager path's")
+    demo_rec["f64_program"] = dict(
+        nodes=graph_nodes(p64g), capture_s=p64g.capture_s,
+        instantiate_s=p64g.instantiate_s,
+        graph_host_ms=host_ms(lambda: p64g.read(p64g.run(demo)), 3),
+        eager_host_ms=host_ms(eager64, 3),
+        reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    say("programs", case="float64_scale_cascade_demo", equal_to_eager=True,
+        equal_to_cpu=True, **demo_rec["f64_program"])
+    p64g.release()
+    del g64, p64g
     demo_rec["ms_front_3"] = best_ms(det, demo)
     # the programs phase's scale-cascade case: the demo's graph (prep, the
     # scale loop and the pack) against the eager frame function
@@ -1519,6 +1580,7 @@ def check_scale_cascade(ct, counters) -> dict:
                                   dtype=torch.float64, cap=b32.cap,
                                   **DEMO_KNOBS)
     rb64 = b64.detect(big, MIN_NEIGHBORS)
+    release_programs(b64)
     del b64
     out["1080p"] = dict(
         cascade=CASCADE, scales=b32.n_scales, cap=b32.cap,
@@ -2039,8 +2101,9 @@ def check_oracle(ct) -> dict:
     """Full-depth parity on the card against the port's C oracle
     (``COracle``), no stage cut: scale-image mode on ``photo_scene`` at the
     headline settings (``SHAPE``) with frontalface_alt, alt2 and
-    alt_tree, float64 (the plain versions on the card) box for box and float32 (the kernels) within docs/PARITY.md's
-    bounds (candidate Jaccard >= 0.995, grouped boxes 1:1 at IoU >= 0.9);
+    alt_tree, float64 (a CUDA graph of the plain front and tails and the
+    compaction kernel; alt_tree's at 327,680 slots) box for box and
+    float32 (the kernels) within docs/PARITY.md's bounds (candidate Jaccard >= 0.995, grouped boxes 1:1 at IoU >= 0.9);
     scale-cascade mode at the demo configuration in float64, box for box.
     Prints the windows the oracle evaluated and its windows/s."""
     import types
@@ -2069,8 +2132,11 @@ def check_oracle(ct) -> dict:
                                  dtype=torch.float64, **KNOBS)
         c64, o64 = d64.candidates(photo)
         f64_s = time.perf_counter() - t1
+        # its CUDA graph's pool (alt_tree: 327,680 slots of float64 node
+        # values) leaves the card before the next detector's
+        f64_gb = torch.cuda.max_memory_reserved() / 1e9
+        release_programs(d64)
         del d64
-        torch.cuda.empty_cache()
         need(not o64 and len(ref) > 0, f"oracle {name}: overflow {o64}, "
              f"{len(ref)} oracle boxes")
         s64, sref = boxes_set(c64), set(ref)
@@ -2092,6 +2158,7 @@ def check_oracle(ct) -> dict:
                          oracle_seconds=oracle_s, oracle_run_seconds=run_s,
                          windows_per_s=windows / run_s,
                          f64_card_seconds=f64_s, f64_equal=True,
+                         f64_max_reserved_gb=f64_gb,
                          f32_parity=p)
         say("oracle", mode="scale_image", cascade=name,
             **{k: json.dumps(v) if isinstance(v, dict) else v
@@ -2106,6 +2173,7 @@ def check_oracle(ct) -> dict:
     g64 = ct.ScaleCascadeDetector(spec, VGA, device="cuda",
                                   dtype=torch.float64, **DEMO_KNOBS)
     c64, o64 = g64.candidates(demo)
+    release_programs(g64)
     del g64
     need(not o64 and len(ref) > 0 and boxes_set(c64) == set(ref),
          f"oracle demo: float64 scale-cascade differs from the C oracle "
@@ -2182,6 +2250,280 @@ def release_programs(*objs) -> None:
             else:
                 d._program = None
     torch.cuda.empty_cache()
+
+
+def context_cost(flags, cap) -> dict:
+    """The compaction's eager call, ``compact(flags, cap)`` on the 1080p
+    front mask, with the wrappers' device context as it was (entered on
+    every launch: ``kernels.on_device`` replaced by ``torch.cuda.device``)
+    and as it is (entered only for another card): call ms from the host
+    clock around ``CONTEXT_REPS`` back-to-back calls and a synchronize,
+    device ms from CUDA events around the same calls; three rounds in
+    turns, the least of each kept and every round printed."""
+    import torch
+    from clfacedetection_torch import kernels
+    from clfacedetection_torch.ops.compact_kernel import compact
+    helper = kernels.on_device
+    modes = {"always": torch.cuda.device, "helper": helper}
+    runs = {m: dict(call_ms=[], event_ms=[]) for m in modes}
+    try:
+        for order in (("always", "helper"), ("helper", "always"),
+                      ("always", "helper")):
+            for m in order:
+                kernels.on_device = modes[m]
+                compact(flags, cap)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                for _ in range(CONTEXT_REPS):
+                    compact(flags, cap)
+                stop.record()
+                torch.cuda.synchronize()
+                runs[m]["call_ms"].append(
+                    (time.perf_counter() - t0) * 1e3 / CONTEXT_REPS)
+                runs[m]["event_ms"].append(
+                    start.elapsed_time(stop) / CONTEXT_REPS)
+    finally:
+        kernels.on_device = helper
+    rec = {m: dict(call_ms=min(v["call_ms"]), event_ms=min(v["event_ms"]),
+                   rounds=v) for m, v in runs.items()}
+    rec["context_us_a_call"] = 1e3 * (rec["always"]["call_ms"]
+                                      - rec["helper"]["call_ms"])
+    say("context", kernel="compact", flags=int(flags.shape[1]), cap=cap,
+        reps=CONTEXT_REPS,
+        **{k: json.dumps(v) if isinstance(v, dict) else v
+           for k, v in rec.items()})
+    return rec
+
+
+def check_smem_setups(cases) -> dict:
+    """``ClfdSmem`` (``csrc/launch.cuh``) keeps each kernel's shared-memory
+    limits per device: once the eager pipeline of each (detector, frame)
+    of ``cases`` ran on the current stream, running them again on another
+    stream of the card, then on the current stream, sets nothing up
+    (``kernels.smem_setups()`` stays put)."""
+    import torch
+    from clfacedetection_torch import kernels
+
+    def run_all():
+        for det, gray in cases:
+            det._detect_device(det.put(gray), det.cap)
+
+    run_all()
+    torch.cuda.synchronize()
+    before = kernels.smem_setups()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run_all()
+    torch.cuda.current_stream().wait_stream(side)
+    run_all()
+    torch.cuda.synchronize()
+    after = kernels.smem_setups()
+    need(before > 0 and after == before,
+         f"ClfdSmem: {after - before} setups on a card already set up "
+         f"({before} before)")
+    rec = dict(setups=after, setups_on_relaunch=after - before,
+               cases=len(cases))
+    say("smem", **rec)
+    return rec
+
+
+def check_float64_programs(ct, counters) -> dict:
+    """float64 on the card as CUDA graphs: the front and the tails in
+    their plain versions (their kernels are float32), the compactions in
+    their kernel, at VGA with the sweep's knobs.  Each graph's readback is
+    byte-equal to its eager float64 path and its candidates equal the
+    CPU's float64, frame for frame: frontalface_alt at batch 1 and 8,
+    frontalface_alt2 (the v1 tail's plain node values), frontalface_alt_tree
+    at full depth, the ROC output of frontalface_alt (its float64 readback
+    slot) and the strip program (``F64_STRIPS`` positions of card 0); the
+    first run of each (the cap regrown where a frame overflowed; its time
+    ``first_s``, warm-ups and captures included) launches the compaction
+    kernel and no other.  Prints eager and graph host ms a
+    frame, graph nodes and the memory reserved for each case, and lets
+    each program go after its case.  (Scale-cascade mode's float64 graph
+    is checked in the scale_cascade phase.)"""
+    import numpy as np
+    import torch
+    from clfacedetection_torch.parallel import StripShardedPyramidDetector
+    from clfacedetection_torch.runtime import Mesh
+    f64 = torch.float64
+    t0 = time.perf_counter()
+    vga = [frame(5, VGA), frame(11, VGA)]
+    wants = {}
+
+    def cpu(cname, i, **kw):
+        key = (cname, i)
+        if key not in wants:
+            wants[key] = ct.PyramidDetector(
+                ct.load_cascade(cname), VGA, device="cpu", dtype=f64,
+                **SWEEP_KNOBS, **kw).candidates(vga[i])
+        return wants[key]
+
+    def only_compact(what, launches):
+        need(launches["compact"] > 0
+             and not any(v for k, v in launches.items() if k != "compact"),
+             f"{what}: float64 ran {launches}, not the compaction kernel "
+             f"alone")
+
+    def graph_case(what, cname, det, idx, owner=None):
+        """The graph of ``owner`` (``det``, or the strips over it) for the
+        frames ``vga[idx]`` against its eager path and the CPU: its
+        ``candidates`` first, a frame at a time, which regrows the cap."""
+        owner = owner or det
+        frames = np.stack([vga[i] for i in idx])
+        B = len(idx)
+        reset_counts(counters)
+        t1 = time.perf_counter()
+        for i in sorted(set(idx)):
+            c, o = owner.candidates(vga[i])
+            need(not o, f"{what}: overflow")
+        first_s = time.perf_counter() - t1
+        only_compact(what, read_counts(counters))
+        if owner is det:
+            prog = det.program(B, det.cap)
+
+            def eager(fr):
+                return det._detect_device(fr, det.cap)
+        else:
+            prog = owner.program(det.cap)
+
+            def eager(fr):
+                return owner._strips_device(fr, det.cap)
+        need(prog.graphed and prog.graph is not None,
+             f"{what}: float64 is not a CUDA graph")
+        got = prog.read(prog.run(frames))
+        want = eager(det.put(frames))
+        for k in prog.names:
+            need(same_bytes(got[k], want[k].cpu().numpy()),
+                 f"{what}: the float64 graph's {k} differs from the eager "
+                 f"path's")
+        for b, (c, o) in enumerate(det.unpack(got["packed"], det.cap,
+                                              lambda: want)):
+            wc, wo = cpu(cname, idx[b])
+            need(o == wo and np.array_equal(c, wc),
+                 f"{what}: frame {b}: {len(c)} candidates on the card, "
+                 f"{len(wc)} on the CPU")
+        rec = dict(batch=B, cap=det.cap, first_s=first_s,
+                   nodes=graph_nodes(prog),
+                   capture_s=prog.capture_s,
+                   instantiate_s=prog.instantiate_s,
+                   candidates=[len(cpu(cname, i)[0]) for i in idx],
+                   graph_host_ms=host_ms(lambda: prog.read(prog.run(frames)),
+                                         3) / B,
+                   eager_host_ms=host_ms(lambda: eager(det.put(frames))[
+                       "packed"].cpu().numpy(), 3) / B,
+                   reserved_gb=torch.cuda.memory_reserved() / 1e9)
+        release_programs(owner)
+        say("programs", case=f"float64_{what}", equal_to_eager=True,
+            equal_to_cpu=True, **{k: json.dumps(v) if isinstance(
+                v, (dict, list)) else v for k, v in rec.items()})
+        return rec
+
+    def pyramid(cname, **kw):
+        return ct.PyramidDetector(ct.load_cascade(cname), VGA, device="cuda",
+                                  dtype=f64, **SWEEP_KNOBS, **kw)
+
+    alt, alt2, tree = CASCADE, V1_CASCADES[0], V1_CASCADES[2]
+    out = {}
+    det = pyramid(alt)
+    out["alt_b1"] = graph_case("alt_b1", alt, det, [0])
+    out["alt_b8"] = graph_case("alt_b8", alt, det, [0, 1] * 4)
+    for what, cname in (("alt2", alt2), ("alt_tree", tree)):
+        out[what] = graph_case(what, cname, pyramid(cname), [0])
+    # the ROC output: its packed_roc readback is float64
+    rd = pyramid(alt, output_levels=True)
+    out["roc_alt"] = graph_case("roc_alt", alt, rd, [0])
+    got = rd.candidates_with_levels(vga[0])
+    want = ct.PyramidDetector(ct.load_cascade(alt), VGA, device="cpu",
+                              dtype=f64, output_levels=True,
+                              **SWEEP_KNOBS).candidates_with_levels(vga[0])
+    need(rd._program.outputs["packed_roc"].dtype == f64
+         and all(np.array_equal(a, b) for a, b in zip(got, want)),
+         "float64 ROC: the card's boxes, levels or weights differ from the "
+         "CPU's")
+    out["roc_alt"]["windows"] = len(got[0])
+    release_programs(rd)
+    # the strip program: the strips' fronts forked onto the positions'
+    # streams of card 0, in one graph
+    sd = pyramid(alt)
+    strips = StripShardedPyramidDetector(
+        sd, Mesh([torch.device("cuda", 0)] * F64_STRIPS, ("strips",)))
+    out["strips"] = graph_case(f"strips{F64_STRIPS}", alt, sd, [0], strips)
+    out["seconds"] = time.perf_counter() - t0
+    say("programs", case="float64", seconds=round(out["seconds"], 3))
+    return out
+
+
+def check_flops(ct, counters, spec, photo, front10_candidates) -> dict:
+    """``utils/flops.py`` and ``PyramidDetector.stage_entering_counts`` at
+    the headline settings on 1080p ``photo_scene``: the counts launch the
+    front kernel once a depth (``n_stages`` launches, no other kernel);
+    ``entering[front_k]`` equals the front-10 graph's ``n_surv``
+    (``PHOTO_SURVIVORS``) and ``entering[-1]`` the candidates of a
+    ``front_stages=n_stages`` detector on the card (JAX's own
+    cross-check), printed beside the front-10 pipeline's candidates;
+    ``pipeline_flops`` and ``scalar_floor_flops`` beside the graph's
+    device ms, with their shares of the float32 peak (information
+    only)."""
+    import numpy as np
+    import torch
+    from clfacedetection_torch.utils.flops import (PEAK_FLOPS_F32_HIGHEST,
+                                                   pipeline_flops,
+                                                   scalar_floor_flops)
+    t0 = time.perf_counter()
+    det = ct.PyramidDetector(spec, SHAPE, device="cuda", **KNOBS)
+    det.stage_entering_counts(photo)
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ent = det.stage_entering_counts(photo)
+    ent_ms = (time.perf_counter() - t1) * 1e3
+    launches = read_counts(counters)
+    need(launches["haar_front"] == det.n_stages
+         and not any(v for k, v in launches.items() if k != "haar_front"),
+         f"flops: stage_entering_counts ran {launches}, not the front "
+         f"kernel {det.n_stages} times")
+    need(ent[0] == det.n_visit and bool(np.all(np.diff(ent) <= 0)),
+         f"flops: entering counts {ent.tolist()}")
+    prog = det.program(1, det.cap)
+    n_surv = int(prog.read(prog.run(photo[None]))["packed"][0, 0])
+    need(int(ent[det.front_k]) == n_surv == PHOTO_SURVIVORS,
+         f"flops: entering[{det.front_k}] = {ent[det.front_k]}, the "
+         f"front-{det.front_k} graph's n_surv {n_surv}, expected "
+         f"{PHOTO_SURVIVORS}")
+    graph_ms = replay_ms(prog, 20)
+    release_programs(det)
+    full = ct.PyramidDetector(spec, SHAPE, device="cuda",
+                              **dict(KNOBS, front_stages=det.n_stages))
+    fc, fo = full.candidates(photo)
+    release_programs(full)
+    need(not fo and len(fc) == int(ent[-1]),
+         f"flops: entering[-1] = {ent[-1]}, a front_stages={det.n_stages} "
+         f"detector's candidates {len(fc)}")
+    pf = pipeline_flops(det, n_surv)
+    fl = scalar_floor_flops(det, ent)
+    sec = graph_ms * 1e-3
+    rec = dict(
+        entering=ent.tolist(), entering_ms=ent_ms, launches=launches,
+        n_surv=n_surv, final=int(ent[-1]), full_depth_candidates=len(fc),
+        front10_candidates=front10_candidates,
+        graph_device_ms=graph_ms, pipeline_flops=pf,
+        scalar_floor_flops=fl["scalar_floor_flops"],
+        scalar_node_evals=fl["scalar_node_evals"],
+        peak_f32=PEAK_FLOPS_F32_HIGHEST,
+        useful_share=pf["useful_flops"] / sec / PEAK_FLOPS_F32_HIGHEST,
+        executed_share=pf["executed_vpu_ops"] / sec / PEAK_FLOPS_F32_HIGHEST,
+        floor_share=fl["scalar_floor_flops"] / sec / PEAK_FLOPS_F32_HIGHEST,
+        seconds=time.perf_counter() - t0)
+    say("flops", shape=f"{SHAPE[0]}x{SHAPE[1]}", scene="photo_scene",
+        front_k=det.front_k, **{k: json.dumps(v) if isinstance(
+            v, (dict, list)) else v for k, v in rec.items()})
+    return rec
+
 
 
 def check_mesh(ct, counters, spec, frames8, photo, sc_det, sc_frame):
@@ -2478,6 +2820,8 @@ def main() -> int:
     stack = {sd: frame(sd) for sd in seeds + [5, 13, 19, 23]}
     results, flags1 = check_kernels(det, gray,
                                     np.stack(list(stack.values())))
+    # the wrappers' device context, with and without (the compaction)
+    results["compact"]["context"] = context_cost(flags1, det.cap)
 
     res, launches = drive(det, gray)
     need(all(launches[k] > 0 for k in ("haar_front", "compact",
@@ -2597,6 +2941,9 @@ def main() -> int:
     programs["seconds"] = time.perf_counter() - t_prog
     say("programs", case="alt_stream_config5",
         seconds=round(programs["seconds"], 3))
+
+    # ---- flops: the accounting and the entering counts on the card ----
+    flops = check_flops(ct, counters, spec, photo, len(pres.candidates))
 
     # ---- the v1 tail's path: CART, tilted, stage tree ----------------
     v1 = {}
@@ -2719,25 +3066,15 @@ def main() -> int:
                                                 f"roc {cname}", reps=3)
         del rd
 
-    # float64 on the card: the plain versions, box for box with the CPU
-    f64 = {}
-    for cname in (CASCADE, V1_CASCADES[0]):
-        fs = ct.load_cascade(cname)
-        g64 = ct.PyramidDetector(fs, VGA, device="cuda",
-                                 dtype=torch.float64, **SWEEP_KNOBS)
-        t1 = time.perf_counter()
-        (gc, go), fl = counted(lambda: g64.candidates(vga))
-        card_s = time.perf_counter() - t1
-        need(not any(fl.values()), f"float64 launched a kernel: {fl}")
-        pc, po = ct.PyramidDetector(fs, VGA, device="cpu",
-                                    dtype=torch.float64,
-                                    **SWEEP_KNOBS).candidates(vga)
-        need(go == po and gc.shape == pc.shape and bool((gc == pc).all())
-             and len(gc) > 0,
-             f"float64 {cname}: card candidates differ from the CPU")
-        f64[cname] = dict(candidates=len(gc), card_seconds=card_s)
+    # float64 on the card: the plain front and tails, the compaction
+    # kernel, box for box with the CPU
+    programs["float64"] = check_float64_programs(ct, counters)
+    f64 = {cname: dict(candidates=programs["float64"][what]["candidates"][0],
+                       card_seconds=programs["float64"][what]["first_s"])
+           for what, cname in (("alt_b1", CASCADE),
+                               ("alt2", V1_CASCADES[0]))}
     say("float64", shape=f"{VGA[0]}x{VGA[1]}", equal_to_cpu=True,
-        **{k: json.dumps(v) for k, v in f64.items()})
+        launched="compact", **{k: json.dumps(v) for k, v in f64.items()})
 
     # VGA sweep of every cascade the v1 tail serves: card = CPU
     t0 = time.perf_counter()
@@ -2763,6 +3100,7 @@ def main() -> int:
     a2spec = ct.load_cascade(a2)
     a2det = ct.PyramidDetector(a2spec, SHAPE, device="cuda", **KNOBS)
     a2b = stream_equals_singles(a2spec, a2det, a2)
+    smem = check_smem_setups([(det, gray), (a2det, gray)])
     phases = {}
     for b in (1, BATCH):
         fr = a2b.put(np.stack([stack[seeds[i % 4]] for i in range(b)]))
@@ -2788,7 +3126,7 @@ def main() -> int:
     rates = {b: dict(tops=c["tops"], ps_per_elem_op=c["ps_per_elem_op"],
                      ms=c["ms"], spread=c["spread"])
              for b, c in tool["chains"].items()}
-    say("rates", peak_ops_tops=PEAK_OPS / 1e12, empty_ms=tool["empty_ms"],
+    say("rates", peak_ops_tops=peaks()[1] / 1e12, empty_ms=tool["empty_ms"],
         matmul_bf16_tflops=round(tool["matmul"]["tflops"], 3),
         tops=json.dumps({b: round(r["tops"], 4) for b, r in rates.items()}),
         seconds=round(time.perf_counter() - t0, 3))
@@ -2921,6 +3259,12 @@ def main() -> int:
         w: {k: main[w]["launches"][k] / BATCH for k in KERNEL_SYMBOLS}
         for w in ("batch8_" + CASCADE, "mesh_batch8x8")}
     say("main_path", launches_a_frame=json.dumps(record["launches_a_frame"]))
+    # each kernel's device ms a frame in those runs (profiler durations)
+    record["device_ms_a_frame"] = {
+        w: {k: main[w]["device_ms"][k] / BATCH for k in KERNEL_SYMBOLS}
+        for w in ("batch8_" + CASCADE, "mesh_batch8x8")}
+    say("main_path",
+        device_ms_a_frame=json.dumps(record["device_ms_a_frame"]))
     record["launches_by_path"] = paths
     record["launches_counted_as"] = (
         "kernels line: the profiler's kernel records of each main path's "
@@ -2947,6 +3291,8 @@ def main() -> int:
     record["oracle"] = oracle
     record["demo"] = demo
     record["mesh"] = mesh
+    record["flops"] = flops
+    record["smem"] = smem
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

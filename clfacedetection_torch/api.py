@@ -4,9 +4,10 @@ Port of ``clfacedetection_tpu/api.py``: ``CascadeClassifier`` (the
 ``cvHaarDetectObjects`` parameter surface) and ``detect_objects`` (the
 reference's ``clodDetectObjects``, clod.h:61-81).  Detectors are built
 per (mode, frame shape, parameters) and cached, and each keeps its
-programs (``runtime/program.py``): in float32 on the card a call replays
-the detector's CUDA graph (captured at its first call, and again when a
-survivor cap grows); float64 and the CPU run the eager pipeline.
+programs (``runtime/program.py``): on the card, in float32 or float64,
+a call replays the detector's CUDA graph (captured at its first call,
+and again when a survivor cap grows); the CPU runs the eager pipeline,
+and find-biggest-object stays eager (it reads every scale back).
 
 Both pyramid modes run every cascade of the zoo: scale-image
 (``PyramidDetector``, with every ``clod_flags`` strategy) and

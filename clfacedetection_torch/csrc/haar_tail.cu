@@ -253,9 +253,10 @@ __global__ void __launch_bounds__(kThreads, 2) tail_kernel(const Tail a) {
 // a block.
 template <int kV>
 int launch(Tail& a, int batch, cudaStream_t stream) {
-  static ClfdSmem limits;
+  static ClfdSmem smem_limits;
+  ClfdSmemLimits limits;
   auto kernel = tail_kernel<kV>;
-  const cudaError_t e = limits.ready((const void*)kernel);
+  const cudaError_t e = smem_limits.ready((const void*)kernel, &limits);
   if (e != cudaSuccess) return (int)e;
   auto smem = [&](int slots) {
     return (size_t)kWarps * kTile * kPitch * 4

@@ -223,8 +223,10 @@ extern "C" int clfd_haar_tail2(const int* sum, const float* vnf,
                                int wp, int cap, int n_table_stages,
                                int front_k, int ph, int pw, int max_cnt,
                                void* stream) {
-  static ClfdSmem limits;
-  const cudaError_t e = limits.ready((const void*)tail2_kernel);
+  static ClfdSmem smem_limits;
+  ClfdSmemLimits limits;
+  const cudaError_t e =
+      smem_limits.ready((const void*)tail2_kernel, &limits);
   if (e != cudaSuccess) return (int)e;
   Tail2 a;
   a.sum = sum;

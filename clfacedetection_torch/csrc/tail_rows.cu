@@ -227,8 +227,10 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(const Rows a) {
 
 template <int T, bool kTree>
 int launch(const Rows& a, int batch, cudaStream_t stream) {
-  static ClfdSmem limits;
-  const cudaError_t e = limits.ready((const void*)rows_kernel<T, kTree>);
+  static ClfdSmem smem_limits;
+  ClfdSmemLimits limits;
+  const cudaError_t e =
+      smem_limits.ready((const void*)rows_kernel<T, kTree>, &limits);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)kWarps * a.warp_words * 4;
   if (smem > (size_t)limits.block) return (int)cudaErrorInvalidValue;

@@ -30,8 +30,8 @@ one fixed tree of additions (``_fold``), the same on the card and the
 CPU and in the front and the tail; the JAX package sums the front in
 classifier order and the tail with ``jnp.sum``, so float32 is held to
 the docs/PARITY.md bounds and float64 box for box.  Nothing reads the
-host from the frame to the packed array, so in float32 on the card
-``candidates`` runs the whole of it, prep and Canny included, as one
+host from the frame to the packed array, so on the card (float32 or
+float64) ``candidates`` runs the whole of it, prep and Canny included, as one
 captured CUDA graph per cap (``runtime/program.py``; JAX's
 ``_jit_scales``).  find-biggest-object stays eager: it reads every
 scale back.  ``shard_scales`` runs scale ``i`` on the ``i % k``-th of k
@@ -824,7 +824,8 @@ class ScaleCascadeDetector:
 
     def program(self):
         """The frame's program at the current cap and Canny step count:
-        a CUDA graph in float32 on the card, else the eager function.
+        a CUDA graph on the card (float32 or float64), the eager function
+        on the CPU.
         One is kept, at the latest key; a new key releases the old one
         once its replays are done."""
         # imported here: the runtime package imports the detect package
@@ -842,8 +843,7 @@ class ScaleCascadeDetector:
             functools.partial(self._frame_device, cap=self.cap,
                               canny_steps=self._canny_steps),
             (self.H, self.W), self.device, readback=names, key=key,
-            graph=(self.device.type == "cuda"
-                   and self.dtype == torch.float32))
+            graph=self.device.type == "cuda")
         return self._program
 
     def candidates(self, gray) -> Tuple[np.ndarray, bool]:

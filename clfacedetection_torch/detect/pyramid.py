@@ -31,10 +31,11 @@ stage trees, wide windows) and ``strategy="block"``.
 product instead (JAX's XLA tail; ``ops/stencil.py``), then the same
 ``tail_rows``.  With ``output_levels`` every frame also packs its ROC
 windows (exit stage and stage sum, tempcv.cpp:1084-1095) into a second
-readback.  float64 runs the plain versions, on the card too: the
-kernels are float32, as the JAX package's Pallas path is.  float64 and
-the plain path stay eager: their plain versions copy tables from the
-host to the card on every call, which a graph cannot hold.
+readback.  float64 runs the plain versions of the front and the tails,
+on the card too: those kernels are float32, as the JAX package's Pallas
+path is; its compactions launch the compaction kernel, which has no
+float type.  The plain versions read their tables from the cascade
+table's cache, so float64 on the card is captured as a CUDA graph too.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ from ..models.compile import (compile_cascade, cv_round, scale_factors,
 from ..models.spec import CascadeSpec
 from ..ops.compact_kernel import compact, compact_plain
 from ..ops.cascade_table import CascadeTable
-from ..ops.haar_front import front_plain, haar_front
+from ..ops.haar_front import (front_masks_plain, front_plain, haar_front,
+                              vnf_plain)
 from ..ops.haar_tail import haar_tail, tail_values_plain
 from ..ops.haar_tail2 import haar_tail2, tail2_plain
 from ..ops.integral import IntegralImages, integral_images
@@ -202,9 +204,10 @@ class PyramidDetector:
     ``device`` is where the pipeline runs: the card by default (an error
     without one); ``device="cpu"`` runs the plain PyTorch versions.  On a
     CUDA device the front, compaction and tails run as CUDA kernels in
-    float32, and the plain versions in float64 (the JAX package's Pallas
-    path is float32 only, ``pyramid.py:417-419, 439-443``); on the CPU
-    the plain versions run, in float32 or float64.  ``cap`` is the
+    float32; in float64 the front and tails run their plain versions (the
+    JAX package's Pallas path is float32 only, ``pyramid.py:417-419,
+    439-443``) and the compactions their kernel; on the CPU the plain
+    versions run, in float32 or float64.  ``cap`` is the
     survivor slot count per frame; it grows 4x while a frame overflows it
     (``candidates``/``detect``).  ``strategy`` picks the survivor tail:
     ``None``/``"per_stage"`` take tail2 where the cascade allows it and
@@ -214,7 +217,7 @@ class PyramidDetector:
     ``front_k`` to ``n_stages - 4``, so that every window the ROC reports
     reaches the tail (JAX ``pyramid.py:370-376``).  ``candidates``,
     ``candidates_with_levels`` and ``detect`` run the pipeline through
-    :meth:`program`: in float32 on the card a CUDA graph, else the eager
+    :meth:`program`: on the card a CUDA graph, on the CPU the eager
     function."""
 
     def __init__(self, spec: CascadeSpec, image_shape: Tuple[int, int],
@@ -328,6 +331,9 @@ class PyramidDetector:
 
     # --------------------------------------------------------- pipeline
     def _plain(self, plain: bool) -> bool:
+        """Whether the front and the tails run their plain versions: on
+        the plain path, and in float64 (their kernels are float32).  The
+        compactions take theirs on the plain path alone."""
         return plain or self.dtype == torch.float64
 
     def _front_device(self, frames: torch.Tensor, plain: bool = False
@@ -349,7 +355,7 @@ class PyramidDetector:
         """Phase 2 (JAX ``_compact_device``): (surv_idx int32 [B, cap],
         n_surv int32 [B]) from the flat front; unused slots hold the flag
         count ``Hv * Wv``."""
-        compact_fn = compact_plain if self._plain(plain) else compact
+        compact_fn = compact_plain if plain else compact
         return compact_fn(front_flat, cap)
 
     def _tail_device(self, s: torch.Tensor, tilted: Optional[torch.Tensor],
@@ -361,8 +367,8 @@ class PyramidDetector:
         (and tilted) plane and the vnf map, then the accept compaction
         into the packed array [B, 2 + 2*acap] (and the ROC's with
         ``output_levels``)."""
-        plain = self._plain(plain)
         compact_fn = compact_plain if plain else compact
+        plain = self._plain(plain)
         n = self.hv * self.wv
         if self.use_tail2:
             tail_fn = tail2_plain if plain else haar_tail2
@@ -402,7 +408,7 @@ class PyramidDetector:
         ``self.device``, the three phases in turn; no host
         synchronisation.  ``plain`` runs the plain PyTorch versions of the
         kernels on the same device (the reference a card run is checked
-        against); float64 always does."""
+        against); float64 always does for the front and the tails."""
         f = self._front_device(frames, plain)
         surv_idx, n_surv = self._compact_device(f["front"], cap, plain)
         ii = f["planes"]
@@ -472,7 +478,8 @@ class PyramidDetector:
     def program(self, B: int, cap: int):
         """The pipeline for ``B`` frames at ``cap`` survivor slots as a
         ``runtime.program.Program`` (JAX's ``_jit_pipeline``): a CUDA graph
-        in float32 on the card, else the eager function.  The detector
+        on the card, in float32 or float64, and the eager function on the
+        CPU.  The detector
         keeps one program: another batch size or cap releases the old one
         once its replays are done, so that one graph's pool at a time
         holds memory."""
@@ -489,9 +496,8 @@ class PyramidDetector:
         self._program = Program(
             functools.partial(self._detect_device, cap=cap),
             (B, self.H, self.W), self.device,
-            graph=(self.device.type == "cuda"
-                   and self.dtype == torch.float32),
-            readback=names, key=(B, cap), slot=self.slot)
+            graph=self.device.type == "cuda", readback=names, key=(B, cap),
+            slot=self.slot)
         return self._program
 
     def _on(self, device, slot: int = 0) -> "PyramidDetector":
@@ -631,6 +637,48 @@ class PyramidDetector:
     def detect(self, gray, min_neighbors: int = 3) -> DetectionResult:
         cand, overflow = self.candidates(gray)
         return finish(cand, overflow, min_neighbors)
+
+    def stage_entering_counts(self, gray) -> np.ndarray:
+        """The visited windows ENTERING each stage under scalar per-stage
+        early exit, then the final accepts: int64 ``[n_stages + 1]`` (JAX
+        ``pyramid.py:607-642``).  The per-scene work profile of the
+        reference's CPU evaluator (tempcv.cpp:919-948: stage s runs only
+        where stages 0..s-1 passed), which ``utils.flops.
+        scalar_floor_flops`` counts.
+
+        The windows entering stage k are the front's survivors at depth
+        k.  On the card the front kernel runs at every depth k = 1..
+        n_stages over one set of integral planes (float32: the kernel's
+        type), each mask summed on the card and the counts read back once;
+        on the CPU the plain front's masks, each stage once.  Stage-tree
+        cascades raise ``ValueError``: a window may fail a stage and pass
+        through a sibling subtree, so no stage is entered by a prefix."""
+        if self.is_tree:
+            raise ValueError("scalar early-exit counts are undefined for "
+                             "stage-tree cascades")
+        S = self.n_stages
+        if self.n_levels == 0:
+            return np.zeros(S + 1, np.int64)
+        frames = self.put(gray)
+        if frames.shape[0] != 1:
+            raise ValueError("stage_entering_counts takes one frame")
+        ii = self._prep_planes(frames)
+        if self.device.type == "cuda":
+            if self.dtype != torch.float32:
+                raise NotImplementedError(
+                    "the front kernel runs in float32 only: build the "
+                    "detector in float32 for its counts on the card")
+            masks = (haar_front(ii.sum, ii.sq_hi, ii.sq_lo, self._visit,
+                                self.table, k, self.dtype, ii.tilted)[0]
+                     for k in range(1, S + 1))
+        else:
+            vnf = vnf_plain(ii.sum, ii.sq_hi, ii.sq_lo, self.table,
+                            self.hv, self.wv, self.dtype)
+            masks = front_masks_plain(ii.sum, self._visit, self.table, S,
+                                      vnf, ii.tilted)
+        counts = [self._visit.sum(dtype=torch.int64)]
+        counts += [m.sum(dtype=torch.int64) for m in masks]
+        return torch.stack(counts).cpu().numpy()
 
 
 def finish(cand: np.ndarray, overflow: bool,

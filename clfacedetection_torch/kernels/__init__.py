@@ -10,6 +10,8 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``.  Each op's wrapper counts its launches
 (``count``): a launch that runs on the card, never one that a CUDA graph
 capture only records; a graph's replays are not the wrapper's to count.
+A wrapper launches under ``on_device``: the tensor's card made current
+only where it is not already.
 
 Flags: ``sm_90a`` (Hopper); ``-fmad=false`` and no fast-math, so that no
 multiply-add is contracted behind the source's back (the kernels spell
@@ -18,6 +20,7 @@ out the one FMA they need with ``__fmaf_rn``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -27,7 +30,8 @@ import subprocess
 import threading
 from typing import Optional
 
-__all__ = ["NVCC_FLAGS", "lib", "check", "count", "build_log", "sass"]
+__all__ = ["NVCC_FLAGS", "lib", "check", "count", "on_device", "smem_setups",
+           "build_log", "sass"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -50,6 +54,7 @@ _SIGNATURES = {
     "clfd_haar_tail": [_P] * 5 + [_I] * 9 + [_P],
     "clfd_tail_rows": [_P] * 6 + [_I] * 9 + [_P],
     "clfd_chain": [_P] * 2 + [_I] * 4 + [_P],
+    "clfd_smem_setups": [],
 }
 
 
@@ -146,6 +151,24 @@ def check(name: str, err: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def on_device(device):
+    """The context a launch on ``device`` (a CUDA tensor's device) runs in:
+    ``torch.cuda.device(device)`` where another card is current, else
+    none, so that a launch on the current card pays for no device
+    switch."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def smem_setups() -> int:
+    """How many times the process has read a card's shared-memory limits
+    for a kernel (``csrc/launch.cuh`` ``ClfdSmem``): once per kernel and
+    device."""
+    return int(lib().clfd_smem_setups())
 
 
 def count(wrapper) -> None:

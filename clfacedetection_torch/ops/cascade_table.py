@@ -55,7 +55,7 @@ the rest keep their order.  Absent rects and nodes are zeros.  Source:
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Optional
+from typing import TYPE_CHECKING, Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -102,11 +102,12 @@ class CascadeTable:
     #                               None unless stumps with upright rects
     nodes: np.ndarray         # int32 [C*T (padded)*NODE_VIEW_WORDS]
     rows: np.ndarray          # int32 [S*STAGE_WORDS + C*ROW_WORDS]
-    _dev: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # table words the front kernel stages, by front_k (ops/haar_front.py
     # front_launch)
     front_words: Dict[int, int] = dataclasses.field(
         default_factory=dict)
+    # what ``cached`` made on a device, by device and key
+    cache: Dict[tuple, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def n_stages(self) -> int:
@@ -219,12 +220,31 @@ class CascadeTable:
                              "classifiers or tilted or non-upright rects")
         view = ("stumps" if stumps else "nodes" if nodes
                 else "rows" if rows else "packed")
-        key = f"{torch.device(device)}/{view}"
-        buf = self._dev.get(key)
-        if buf is None:
-            buf = torch.from_numpy(getattr(self, view)).to(device)
-            self._dev[key] = buf
-        return buf
+        return self.cached((view,), device, lambda: torch.from_numpy(
+            getattr(self, view)).to(device))
+
+    def cached(self, key: tuple, device, make: Callable[[], Any]) -> Any:
+        """What ``make()`` builds from the table's arrays on ``device`` (a
+        tensor or a tuple of them), kept under ``key`` and the device for
+        the table's life.  The kernels' buffers and the plain versions'
+        tables come from it, so that a run copies nothing from the host
+        once they are made, and a CUDA graph can hold it.  ``key`` names
+        what is made: the view, the slice and the dtype.  The first call for a key and a
+        CUDA device must come before any graph captures it (a warm-up
+        run), as the copy from pageable host memory cannot be captured."""
+        device = torch.device(device)
+        k = (str(device),) + tuple(key)
+        v = self.cache.get(k)
+        if v is None:
+            if device.type == "cuda" \
+                    and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"the table's {key} is first needed on {device} inside "
+                    f"a CUDA graph capture: run the path once before "
+                    f"capturing it")
+            v = make()
+            self.cache[k] = v
+        return v
 
 
 def _pack_stumps(st, n_rects, corners, weights, thr, alpha, left, right,

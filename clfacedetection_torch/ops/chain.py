@@ -117,7 +117,7 @@ def chain(x: torch.Tensor, body: str, trips: int,
                          "rows with 16-byte loads)")
     gh = x.shape[0]
     out = torch.empty((gh, gw), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with kernels.on_device(x.device):
         err = kernels.lib().clfd_chain(
             x.data_ptr(), out.data_ptr(), gh, gw, _TRIPS[body][1], int(trips),
             torch.cuda.current_stream(x.device).cuda_stream)

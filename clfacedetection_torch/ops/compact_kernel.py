@@ -106,7 +106,7 @@ def compact(flags: torch.Tensor, cap: int):
     out = torch.empty((B, cap), dtype=torch.int32, device=dev)
     total = torch.empty((B,), dtype=torch.int32, device=dev)
     vec = int(flags.data_ptr() % 16 == 0 and n % 16 == 0)
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         err = kernels.lib().clfd_compact(
             flags.data_ptr(), scratch.data_ptr(), out.data_ptr(),
             total.data_ptr(), n, -(-n // TILE), cap, B, vec, stream)

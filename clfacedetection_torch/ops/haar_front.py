@@ -31,7 +31,8 @@ import torch
 from .. import kernels
 from .cascade_table import STAGE_WORDS, STUMP_WORDS, CascadeTable
 
-__all__ = ["haar_front", "front_plain", "front_votes_plain", "vnf_plain",
+__all__ = ["haar_front", "front_plain", "front_votes_plain",
+           "front_masks_plain", "vnf_plain",
            "variance_factor", "front_table_words", "front_smem_bytes",
            "front_launch"]
 
@@ -197,10 +198,22 @@ def front_votes_plain(sum_: torch.Tensor, visit: torch.Tensor,
     """The front mask for a given vnf map: visit AND stages 0..front_k-1."""
     hv, wv = visit.shape
     front = visit.unsqueeze(0).expand(sum_.shape[0], hv, wv).clone()
+    for mask in front_masks_plain(sum_, visit, table, front_k, vnf, tilted):
+        front = mask
+    return front
+
+
+def front_masks_plain(sum_: torch.Tensor, visit: torch.Tensor,
+                      table: CascadeTable, front_k: int, vnf: torch.Tensor,
+                      tilted: Optional[torch.Tensor] = None):
+    """The front mask at every depth k = 1..front_k in turn, a new tensor
+    each: visit AND stages 0..k-1, each stage once."""
+    hv, wv = visit.shape
+    front = visit.unsqueeze(0).expand(sum_.shape[0], hv, wv)
     for st in range(front_k):
         ssum = _stage_sum_dense((sum_, tilted), table, st, vnf, hv, wv)
-        front &= ssum >= float(table.stage_thr[st])
-    return front
+        front = front & (ssum >= float(table.stage_thr[st]))
+        yield front
 
 
 def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
@@ -244,7 +257,7 @@ def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
     ya, xa, yb, xb = table.equ
     # the kernel stages the tilted plane when it gets one, as
     # front_smem_bytes counts it: only for a cascade with tilted nodes
-    with torch.cuda.device(sum_.device):
+    with kernels.on_device(sum_.device):
         err = kernels.lib().clfd_haar_front(
             sum_.data_ptr(), sq_hi.data_ptr(), sq_lo.data_ptr(),
             tilted.data_ptr() if table.has_tilted else None, visit.data_ptr(),

@@ -40,12 +40,33 @@ def patch_shape(table: CascadeTable):
     return table.max_dy + 1, table.max_dx + 1
 
 
+def _node_tensors(table: CascadeTable, a: int, b: int, device, dtype):
+    """Nodes ``a..b-1`` (column order) for ``tail_values_plain`` on
+    ``device``, made once (``CascadeTable.cached``): the patch column of
+    every corner of every rect (int64 [m*12]), the weights [m, 3] in
+    ``dtype`` and the rect counts [m, 1]."""
+    def make():
+        nn = table.n_clf * table.T
+        ph, pw = patch_shape(table)
+        cor = table.corners.reshape(nn, 3, 4, 2)[a:b].astype(np.int64)
+        col = cor[..., 0] * pw + cor[..., 1] \
+            + table.tilted.reshape(nn, 1, 1)[a:b] * (ph * pw)   # [m, 3, 4]
+        return (torch.from_numpy(col.reshape(-1)).to(device),
+                torch.from_numpy(table.weights.reshape(nn, 3)[a:b]).to(
+                    device, dtype),
+                torch.from_numpy(table.n_rects.reshape(nn)[a:b]).to(
+                    device)[:, None])
+    return table.cached(("values", a, b, dtype), device, make)
+
+
 def tail_values_plain(sum_: torch.Tensor, tilted: Optional[torch.Tensor],
                       surv_idx: torch.Tensor, hv: int, wv: int,
                       table: CascadeTable,
                       dtype=torch.float32) -> torch.Tensor:
     """[B, cap, n_clf * T] node values in ``dtype``, chunked over nodes so
-    that the gathered corners stay under ``_CHUNK_ELEMS`` elements."""
+    that the gathered corners stay under ``_CHUNK_ELEMS`` elements.  Its
+    tables come from the table's cache, so a run copies nothing from the
+    host once they are made."""
     B, cap = surv_idx.shape
     wp = sum_.shape[2]
     dev = sum_.device
@@ -55,8 +76,9 @@ def tail_values_plain(sum_: torch.Tensor, tilted: Optional[torch.Tensor],
     idx = torch.where(valid, surv_idx, 0).long()
     y = torch.div(idx, wv, rounding_mode="floor")
     base = y * wp + (idx - y * wv)                       # [B, cap]
-    dy, dx = np.meshgrid(np.arange(ph), np.arange(pw), indexing="ij")
-    off = torch.from_numpy((dy * wp + dx).reshape(-1)).to(dev)
+    # the patch offsets made on the device: no copy from the host
+    off = (torch.arange(ph, device=dev)[:, None] * wp
+           + torch.arange(pw, device=dev)[None, :]).reshape(-1)
     gidx = (base[:, :, None] + off).reshape(B, -1)
     patch = [sum_.reshape(B, -1).gather(1, gidx).reshape(B, cap, -1)]
     if table.has_tilted:
@@ -64,25 +86,17 @@ def tail_values_plain(sum_: torch.Tensor, tilted: Optional[torch.Tensor],
                                                                    -1))
     # [B, planes*P, cap]: selecting patch columns copies whole rows
     patch = torch.cat(patch, dim=2).transpose(1, 2).contiguous()
-    T = table.T
-    nn = table.n_clf * T
-    # patch column of every corner of every rect of every node
-    cor = table.corners.reshape(nn, 3, 4, 2).astype(np.int64)
-    col = cor[..., 0] * pw + cor[..., 1] \
-        + table.tilted.reshape(nn, 1, 1) * (ph * pw)     # [nn, 3, 4]
-    w = table.weights.reshape(nn, 3)
-    nr = table.n_rects.reshape(nn)
+    nn = table.n_clf * table.T
     out = torch.empty((B, cap, nn), dtype=dtype, device=dev)
     step = max(1, _CHUNK_ELEMS // max(1, B * cap * 12))
     for a in range(0, nn, step):
         b = min(nn, a + step)
         m = b - a
-        c = torch.from_numpy(col[a:b].reshape(-1)).to(dev)
+        c, w, has = _node_tensors(table, a, b, dev, dtype)
         v = patch.index_select(1, c).reshape(B, m, 3, 4, cap)
         rs = (v[:, :, :, 0] - v[:, :, :, 1] - v[:, :, :, 2]
               + v[:, :, :, 3]).to(dtype)                 # [B, m, 3, cap]
-        terms = rs * torch.from_numpy(w[a:b]).to(dev, dtype)[..., None]
-        has = torch.from_numpy(nr[a:b]).to(dev)[:, None]
+        terms = rs * w[..., None]
         nv = terms[:, :, 0]
         for k in (1, 2):
             nv = torch.where(has > k, nv + terms[:, :, k], nv)
@@ -128,7 +142,7 @@ def haar_tail(sum_: torch.Tensor, tilted: Optional[torch.Tensor],
     nn = table.n_clf * table.T
     out = torch.empty((B, cap, nn), dtype=torch.float32, device=sum_.device)
     tab = table.device_buffer(sum_.device, nodes=True)
-    with torch.cuda.device(sum_.device):
+    with kernels.on_device(sum_.device):
         err = kernels.lib().clfd_haar_tail(
             sum_.data_ptr(), tilted.data_ptr() if table.has_tilted else None,
             surv_idx.data_ptr(), tab.data_ptr(), out.data_ptr(), B, hv, wv, hp,

@@ -24,10 +24,33 @@ from .cascade_table import CascadeTable
 __all__ = ["haar_tail2", "tail2_plain"]
 
 
+def _stage_tensors(table: CascadeTable, st: int, wp: int, device, dtype):
+    """Stage ``st``'s stumps for ``tail2_plain`` on ``device``, made once
+    (``CascadeTable.cached``): the offsets of each rect's four corners in
+    a plane of width ``wp`` (int64 [cnt, 3] each), then its weights
+    [cnt, 3], thresholds and left and right leaves [cnt] in ``dtype``."""
+    def make():
+        npdt = np.float64 if dtype == torch.float64 else np.float32
+        c0 = int(table.stage_clf0[st])
+        sl = slice(c0, c0 + int(table.stage_cnt[st]))
+        cor = table.corners[sl, 0].astype(np.int64)     # [cnt, 3, 4, 2]
+        clfs = np.arange(sl.start, sl.stop)
+        host = [cor[..., j, 0] * wp + cor[..., j, 1] for j in range(4)] + [
+            table.weights[sl, 0].astype(npdt), table.thr[sl, 0].astype(npdt),
+            # stumps: node 0 of each classifier, its leaves
+            # alpha[-left/-right]
+            table.alpha[clfs, -table.left[sl, 0]].astype(npdt),
+            table.alpha[clfs, -table.right[sl, 0]].astype(npdt)]
+        return tuple(torch.from_numpy(a).to(device) for a in host)
+    return table.cached(("tail2", st, wp, dtype), device, make)
+
+
 def tail2_plain(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
                 table: CascadeTable, front_k: int) -> torch.Tensor:
     """[B, cap, 4] tail rows, vectorised over survivors and a stage's
-    nodes; the stage sum itself runs sequentially in classifier order."""
+    nodes; the stage sum itself runs sequentially in classifier order.
+    Its tables come from the table's cache, so a run copies nothing from
+    the host once they are made."""
     B, hv, wv = vnf.shape
     wp = sum_.shape[2]
     dtype = vnf.dtype
@@ -39,38 +62,26 @@ def tail2_plain(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
     base = y * wp + (idx - y * wv)                       # [B, cap]
     flat = sum_.reshape(B, -1)
     svnf = vnf.reshape(B, -1).gather(1, idx)
-    npdt = np.float64 if dtype == torch.float64 else np.float32
     alive = valid.clone()
     level = torch.full_like(svnf, float(table.n_stages))
     weight = torch.zeros_like(svnf)
-    # stumps: node 0 of each classifier, its leaves alpha[-left/-right]
-    clfs = np.arange(table.n_clf)
-    a_left = table.alpha[clfs, -table.left[:, 0]]
-    a_right = table.alpha[clfs, -table.right[:, 0]]
     for st in range(front_k, table.n_stages):
-        sl = slice(int(table.stage_clf0[st]),
-                   int(table.stage_clf0[st]) + int(table.stage_cnt[st]))
-        cor = table.corners[sl, 0].astype(np.int64)     # [cnt, 3, 4, 2]
+        *offs, w, thr, a_l, a_r = _stage_tensors(table, st, wp, dev, dtype)
 
-        def corner(j):
-            """Integral entries at corner j of every rect of the stage for
-            every survivor: int32 [B, cap, cnt, 3]."""
-            off = torch.from_numpy(cor[..., j, 0] * wp + cor[..., j, 1]).to(dev)
+        def corner(off):
+            """Integral entries at one corner of every rect of the stage
+            for every survivor: int32 [B, cap, cnt, 3]."""
             idx = (base[:, :, None, None] + off).reshape(B, -1)
             return flat.gather(1, idx).reshape(B, -1, *off.shape)
 
-        rs = (corner(0) - corner(1) - corner(2)
-              + corner(3)).to(dtype)                     # [B, cap, cnt, 3]
-        w = torch.from_numpy(table.weights[sl, 0].astype(npdt)).to(dev)
+        rs = (corner(offs[0]) - corner(offs[1]) - corner(offs[2])
+              + corner(offs[3])).to(dtype)               # [B, cap, cnt, 3]
         terms = rs * w
         nv = terms[..., 0]
         for k in range(1, 3):
             # rects past a node's count have weight 0 and corners (0, 0):
             # adding their exact 0 leaves the comparison unchanged
             nv = nv + terms[..., k]
-        thr = torch.from_numpy(table.thr[sl, 0].astype(npdt)).to(dev)
-        a_l = torch.from_numpy(a_left[sl].astype(npdt)).to(dev)
-        a_r = torch.from_numpy(a_right[sl].astype(npdt)).to(dev)
         vote = torch.where(nv < thr * svnf[..., None], a_l, a_r)
         ssum = torch.zeros_like(svnf)
         for j in range(vote.shape[-1]):
@@ -118,7 +129,7 @@ def haar_tail2(sum_: torch.Tensor, vnf: torch.Tensor, surv_idx: torch.Tensor,
     out = torch.empty((B, cap, 4), dtype=torch.float32, device=sum_.device)
     tab = table.device_buffer(sum_.device, stumps=True)
     max_cnt = max(1, int(table.stage_cnt[front_k:].max(initial=0)))
-    with torch.cuda.device(sum_.device):
+    with kernels.on_device(sum_.device):
         err = kernels.lib().clfd_haar_tail2(
             sum_.data_ptr(), vnf.data_ptr(), surv_idx.data_ptr(),
             tab.data_ptr(), out.data_ptr(), B, hv, wv, hp, wp, cap,

@@ -17,7 +17,8 @@ All planes are (..., H+1, W+1) with a zero first row and column, like
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -107,11 +108,49 @@ def bgra_to_gray(img: torch.Tensor, mode: str = "cv") -> torch.Tensor:
     return bgr_to_gray(img[..., :3], mode)
 
 
-class IntegralImages(NamedTuple):
-    sum: torch.Tensor     # int32 (..., H+1, W+1)
+@dataclasses.dataclass(frozen=True, eq=False)
+class IntegralImages:
+    """The integral planes of one frame or a batch: each int32
+    (..., H+1+pad_after, W+1+pad_after), the last ``pad_after`` rows and
+    columns zero (``integral_images``).  Unpacks, indexes and slices as
+    the tuple of its four planes, ``(sum, sq_hi, sq_lo, tilted)``."""
+
+    sum: torch.Tensor     # int32
     sq_hi: torch.Tensor   # int32, integral of (p*p) >> 8
     sq_lo: torch.Tensor   # int32, integral of (p*p) & 0xFF
     tilted: Optional[torch.Tensor] = None   # int32 RSAT, with_tilted only
+    pad_after: int = 0    # zero rows and columns after the planes
+
+    def planes(self) -> tuple:
+        return (self.sum, self.sq_hi, self.sq_lo, self.tilted)
+
+    def __iter__(self):
+        return iter(self.planes())
+
+    def __len__(self) -> int:
+        return 4
+
+    def __getitem__(self, i):
+        return self.planes()[i]
+
+    @property
+    def height(self) -> int:
+        """H: the frame's rows, the pad left out."""
+        return self.sum.shape[-2] - 1 - self.pad_after
+
+    @property
+    def width(self) -> int:
+        """W: the frame's columns, the pad left out."""
+        return self.sum.shape[-1] - 1 - self.pad_after
+
+    def sqsum_f64(self) -> np.ndarray:
+        """The float64 squared-sum integral (``cv2.integral``'s layout,
+        (..., H+1, W+1), the pad left out) on the host: ``hi * 256 + lo``,
+        for test oracles."""
+        h, w = self.height + 1, self.width + 1
+        hi = self.sq_hi[..., :h, :w].cpu().numpy().astype(np.float64)
+        lo = self.sq_lo[..., :h, :w].cpu().numpy().astype(np.float64)
+        return hi * 256.0 + lo
 
 
 def integral_2d(x: torch.Tensor, pad_after: int = 0) -> torch.Tensor:
@@ -205,4 +244,5 @@ def integral_images(gray: torch.Tensor, pad_after: int = 0,
         tilted = F.pad(tilted_integral(gray), (0, pad_after, 0, pad_after))
     return IntegralImages(integral_2d(p, pad_after),
                           integral_2d(p2 >> 8, pad_after),
-                          integral_2d(p2 & 0xFF, pad_after), tilted)
+                          integral_2d(p2 & 0xFF, pad_after), tilted,
+                          pad_after)

@@ -32,16 +32,40 @@ _MAX_TREE_STAGES = 64
 _MAX_LEAVES = 32
 
 
-def clf_tensors(table, c0: int, c1: int, device, dtype):
+def clf_tensors(table: CascadeTable, c0: int, c1: int, device, dtype):
     """(thr, alpha, left, right) of classifiers ``c0..c1-1`` on
     ``device``, for ``_cart_votes``: thresholds [m, T] and leaves
-    [m, T+1] in ``dtype``, links int64 [m, T].  ``table`` holds them as
-    numpy arrays named ``thr``, ``alpha``, ``left`` and ``right``."""
+    [m, T+1] in ``dtype``, links int64 [m, T]; made once
+    (``CascadeTable.cached``)."""
     sl = slice(c0, c1)
-    return (torch.from_numpy(table.thr[sl]).to(device, dtype),
-            torch.from_numpy(table.alpha[sl]).to(device, dtype),
-            torch.from_numpy(table.left[sl]).to(device).long(),
-            torch.from_numpy(table.right[sl]).to(device).long())
+    return table.cached(("clf", c0, c1, dtype), device, lambda: (
+        torch.from_numpy(table.thr[sl]).to(device, dtype),
+        torch.from_numpy(table.alpha[sl]).to(device, dtype),
+        torch.from_numpy(table.left[sl]).to(device).long(),
+        torch.from_numpy(table.right[sl]).to(device).long()))
+
+
+def _group_tensors(table: CascadeTable, st: int, en: int, ca: int, device):
+    """Stages ``st..en-1`` of a vote group whose first classifier is
+    ``ca``: each stage's first classifier in the group and its classifier
+    count, int64 [en - st] each; made once."""
+    return table.cached(("group", st, en, ca), device, lambda: (
+        torch.from_numpy(table.stage_clf0[st:en] - ca).to(device).long(),
+        torch.from_numpy(table.stage_cnt[st:en]).to(device).long()))
+
+
+def _path_tensors(table: CascadeTable, paths: List[List[int]], device):
+    """The stage-tree paths for ``tail_rows_plain``: which stages lie off
+    each path (bool [paths, S]) and each path's leaf stage (int64
+    [paths]); made once per paths."""
+    def make():
+        pm = np.zeros((len(paths), table.n_stages), bool)
+        for i, p in enumerate(paths):
+            pm[i, p] = True
+        leaf = np.array([p[-1] for p in paths], np.int64)
+        return (torch.from_numpy(~pm).to(device),
+                torch.from_numpy(leaf).to(device))
+    return table.cached(("paths", repr(paths)), device, make)
 
 
 def _cart_votes(nv: torch.Tensor, svnf: torch.Tensor, thr: torch.Tensor,
@@ -83,6 +107,9 @@ def tail_rows_plain(values: torch.Tensor, svnf: torch.Tensor,
     tail2's row format [B, cap, 4]: vnf, alive, exit stage, stage sum.
     Slots whose index in ``surv_idx`` lies outside ``[0, n)`` are padding.
 
+    Its tables come from the table's cache (``CascadeTable.cached``), so
+    a run copies nothing from the host once they are made.
+
     Stage sums are sequential in classifier order (the front's order, so
     front and tail agree, and the card and the CPU agree bit for bit).
     Sequential cascades (``paths=None``) evaluate stages
@@ -117,8 +144,7 @@ def tail_rows_plain(values: torch.Tensor, svnf: torch.Tensor,
             nv = values[:, :, ca * T:cb * T].reshape(B, cap, cb - ca, T)
             votes = _cart_votes(nv.to(dtype), svnf,
                                 *clf_tensors(table, ca, cb, dev, dtype))
-            ofs = torch.from_numpy(c0s[st:en] - ca).to(dev).long()
-            cnt = torch.from_numpy(cnts[st:en]).to(dev).long()
+            ofs, cnt = _group_tensors(table, st, en, ca, dev)
             g = torch.zeros((B, cap, en - st), dtype=dtype, device=dev)
             for j in range(int(cnts[st:en].max())):
                 v = votes.index_select(2, (ofs + j).clamp(max=cb - ca - 1))
@@ -127,7 +153,9 @@ def tail_rows_plain(values: torch.Tensor, svnf: torch.Tensor,
             del votes, nv
             st = en
         del values
-        thr = torch.from_numpy(table.stage_thr[s_lo:]).to(dev, dtype)
+        thr = table.cached(
+            ("stage_thr", s_lo, dtype), dev,
+            lambda: torch.from_numpy(table.stage_thr[s_lo:]).to(dev, dtype))
         st_pass = ssum >= thr                                # [B, cap, ns]
         if paths is None:
             fail = ~st_pass
@@ -137,14 +165,10 @@ def tail_rows_plain(values: torch.Tensor, svnf: torch.Tensor,
                                 float(S))
             widx = torch.where(fail.any(dim=2), first, ns - 1)
         else:
-            pm = np.zeros((len(paths), S), bool)
-            for i, p in enumerate(paths):
-                pm[i, p] = True
-            off_path = torch.from_numpy(~pm).to(dev)
+            off_path, leaf = _path_tensors(table, paths, dev)
             per_path = (st_pass[:, :, None, :] | off_path).all(dim=3)
             accept = per_path.any(dim=2)
             alive = valid & accept
-            leaf = torch.tensor([p[-1] for p in paths], device=dev)
             widx = leaf[per_path.to(torch.uint8).argmax(dim=2)]
             level = torch.where(accept, float(S), 0.0).to(dtype)
         weight = ssum.gather(2, widx[..., None])[..., 0]
@@ -158,9 +182,7 @@ def _path_buffer(table: CascadeTable, paths: List[List[int]], device):
     a 64-bit mask (low, high word), the index of its leaf stage among the
     distinct leaf stages, 0; then per stage its leaf index (-1 for a
     stage that ends no path).  Copied once per device and paths."""
-    key = f"{torch.device(device)}/paths/{paths!r}"
-    buf = table._dev.get(key)
-    if buf is None:
+    def make():
         leaves = sorted({p[-1] for p in paths})
         rec = np.zeros((len(paths), 4), np.uint32)
         for i, p in enumerate(paths):
@@ -169,10 +191,9 @@ def _path_buffer(table: CascadeTable, paths: List[List[int]], device):
             rec[i, 2] = leaves.index(p[-1])
         of_stage = np.full(table.n_stages, -1, np.int32)
         of_stage[leaves] = np.arange(len(leaves))
-        buf = torch.from_numpy(np.concatenate(
+        return torch.from_numpy(np.concatenate(
             [rec.view(np.int32).reshape(-1), of_stage])).to(device)
-        table._dev[key] = buf
-    return buf
+    return table.cached(("path_buffer", repr(paths)), device, make)
 
 
 def tail_rows(values: torch.Tensor, svnf: torch.Tensor,
@@ -218,7 +239,7 @@ def tail_rows(values: torch.Tensor, svnf: torch.Tensor,
     out = torch.empty((B, cap, 4), dtype=torch.float32, device=dev)
     tab = table.device_buffer(dev, rows=True)
     pb = _path_buffer(table, paths, dev) if paths is not None else None
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev):
         err = kernels.lib().clfd_tail_rows(
             values.data_ptr(), svnf.data_ptr(), surv_idx.data_ptr(),
             tab.data_ptr(), pb.data_ptr() if pb is not None else None,

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..detect.pyramid import PyramidDetector, finish
-from ..ops.compact_kernel import compact, compact_plain
+from ..ops.compact_kernel import compact
 from ..ops.haar_front import front_plain, haar_front
 from ..runtime.mesh import Fork, Mesh
 from ..runtime.program import Program
@@ -80,7 +80,7 @@ class StripShardedPyramidDetector:
         self._visit_strips = [torch.from_numpy(vs[s]).to(d)
                               for s, d in enumerate(mesh.devices)]
         home = mesh.devices[0]
-        self.graphed = (home.type == "cuda" and det.dtype == torch.float32
+        self.graphed = (home.type == "cuda"
                         and all(d == home for d in mesh.devices))
         self._program: Optional[Program] = None
 
@@ -92,9 +92,9 @@ class StripShardedPyramidDetector:
         gather, the detector's tail on the home device.  Adds ``n_strip``
         int32 [k], each strip's true survivor count."""
         det, k, Hs, Hv, Wv = self.det, self.k, self.Hs, self.Hv, self.Wv
-        plain = det._plain(False)
-        front_fn = front_plain if plain else haar_front
-        compact_fn = compact_plain if plain else compact
+        # float64: the plain front (its kernel is float32), the kernel
+        # compaction
+        front_fn = front_plain if det._plain(False) else haar_front
         cap_s = cap // k
         n_flat, n_strip = Hv * Wv, Hs * Wv
         fork = Fork(self.mesh.devices)
@@ -115,7 +115,7 @@ class StripShardedPyramidDetector:
                 front, vnf = front_fn(sp[0], sp[1], sp[2],
                                       self._visit_strips[s], det.table,
                                       det.front_k, det.dtype, tilted)
-                sidx, n_s = compact_fn(front.reshape(1, -1), cap_s)
+                sidx, n_s = compact(front.reshape(1, -1), cap_s)
                 # strip-local flat index -> canvas index (a strip is a
                 # full-width row band: + y0 * Wv); the strip's padding
                 # index (Hs * Wv) -> the canvas's (Hv * Wv)

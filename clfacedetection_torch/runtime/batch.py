@@ -321,7 +321,7 @@ class MultiCascadeBatchedDetector:
         dev = self._devices[position]
         self._programs[position] = Program(
             self._fused(caps, position), (B, det.H, det.W), dev,
-            graph=(dev.type == "cuda" and det.dtype == torch.float32),
+            graph=dev.type == "cuda",
             readback=("packed_all",), key=(B, caps), slot=position)
         return self._programs[position]
 

@@ -21,8 +21,11 @@ more handles).
 
 Capture: one eager run on the program stream first, at the same shapes,
 which makes every lazy cache outside the graph's pool (the kernel library,
-the cascade tables uploaded at first use, the compaction's scratch, which
-is kept per stream), then the capture on that stream.  A capture that fails
+the cascade tables uploaded at first use, the kernels' buffers and the
+plain versions' tables alike, the compaction's scratch, which is kept per
+stream), then the capture on that stream, with Python's cyclic garbage
+collector off (a dead detector's graph destroyed by a collection during
+a capture would make the capture fail).  A capture that fails
 raises; nothing falls back to the eager path.  The capture is
 ``thread_local``: a stream's drain thread may wait on events while the
 enqueue thread captures.
@@ -36,6 +39,7 @@ profiler to read.
 
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 from typing import Callable, Dict, Optional, Sequence
@@ -155,9 +159,19 @@ class Program:
         s.synchronize()
         # keep_graph: the capture and the instantiation timed apart
         g = torch.cuda.CUDAGraph(keep_graph=True)
+        # no automatic collection during the capture: a dead cycle (a
+        # detector and its program) collected then would destroy its graph,
+        # which a capture does not permit, and the capture would fail
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
-        with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
-            out = self.fn(self.input)
+        try:
+            with torch.cuda.graph(g, stream=s,
+                                  capture_error_mode="thread_local"):
+                out = self.fn(self.input)
+        finally:
+            if collecting:
+                gc.enable()
         t1 = time.perf_counter()
         g.instantiate()
         self.instantiate_s = time.perf_counter() - t1

@@ -10,9 +10,13 @@ import subprocess
 import sys
 import textwrap
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from clfacedetection_tpu import detect as jdetect_pkg
+from clfacedetection_tpu import ops as jops
 from clfacedetection_tpu.detect import detector as jdetector
 from clfacedetection_tpu.detect.grouping import \
     group_rectangles as j_group_rectangles
@@ -25,6 +29,9 @@ from clfacedetection_tpu.models.spec import _ARRAY_FIELDS
 from clfacedetection_tpu.utils import synth_face as j_synth_face
 from clfacedetection_tpu.utils import synth_scene as j_synth_scene
 
+import clfacedetection_torch as ct
+from clfacedetection_torch import detect as tdetect_pkg
+from clfacedetection_torch import ops as tops
 from clfacedetection_torch.detect import detector as tdetector
 from clfacedetection_torch.detect.grouping import \
     group_rectangles as t_group_rectangles
@@ -208,3 +215,111 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_ops_names_behave_like_jax():
+    """``ops.__all__`` is JAX's, and each name gives JAX's result on one
+    small input (bit for bit)."""
+    assert tops.__all__ == jops.__all__
+    rng = np.random.default_rng(3)
+    bgr = rng.integers(0, 256, (2, 9, 11, 3), dtype=np.uint8)
+    bgra = rng.integers(0, 256, (2, 9, 11, 4), dtype=np.uint8)
+    gray = rng.integers(0, 256, (2, 9, 11), dtype=np.uint8)
+    t, j = torch.from_numpy, jnp.asarray
+    pairs = {
+        "bgr_to_gray": (tops.bgr_to_gray(t(bgr)), jops.bgr_to_gray(j(bgr))),
+        "bgr_to_gray_clif": (tops.bgr_to_gray(t(bgr), "clif"),
+                             jops.bgr_to_gray(j(bgr), "clif")),
+        "bgr_to_gray_per_row": (tops.bgr_to_gray_per_row(t(bgr)),
+                                jops.bgr_to_gray_per_row(j(bgr))),
+        "bgra_to_gray": (tops.bgra_to_gray(t(bgra)),
+                         jops.bgra_to_gray(j(bgra))),
+        "invert": (tops.invert(t(gray)), jops.invert(j(gray))),
+        "tilted_integral": (tops.tilted_integral(t(gray)),
+                            jops.tilted_integral(j(gray))),
+        "resize_bilinear_u8": (tops.resize_bilinear_u8(t(gray), (5, 14)),
+                               jops.resize_bilinear_u8(j(gray), (5, 14))),
+        "resize_bilinear_u8_np": (tops.resize_bilinear_u8_np(gray, (13, 6)),
+                                  jops.resize_bilinear_u8_np(gray, (13, 6))),
+    }
+    ti = tops.integral_images(t(gray), with_tilted=True)
+    ji = jops.integral_images(j(gray), with_tilted=True)
+    assert isinstance(ti, tops.IntegralImages)
+    for f in ("sum", "sq_hi", "sq_lo", "tilted"):
+        pairs[f"integral_images.{f}"] = (getattr(ti, f), getattr(ji, f))
+    for k, (a, b) in pairs.items():
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    for a, b in zip(tops.resize_coeffs(11, 7), jops.resize_coeffs(11, 7)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_detect_names_hold_jax():
+    assert set(jdetect_pkg.__all__) <= set(tdetect_pkg.__all__)
+    assert tdetect_pkg.partition_similar is \
+        tdetect_pkg.grouping.partition_similar
+
+
+@pytest.mark.parametrize("pad", [0, 3])
+def test_integral_images_shape_and_sqsum_f64(pad):
+    """``height``, ``width`` and ``sqsum_f64()`` are JAX's, with the
+    planes' zero pad left out; the bundle unpacks as its four planes."""
+    gray = np.random.default_rng(pad).integers(0, 256, (2, 7, 12),
+                                               dtype=np.uint8)
+    ti = tops.integral_images(torch.from_numpy(gray), pad)
+    ji = jops.integral_images(jnp.asarray(gray))
+    assert ti.pad_after == pad
+    assert tuple(ti.sum.shape[-2:]) == (8 + pad, 13 + pad)
+    assert (ti.height, ti.width) == (ji.height, ji.width) == (7, 12)
+    got, want = ti.sqsum_f64(), ji.sqsum_f64()
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    s, hi, lo, tilted = ti
+    assert s is ti.sum and hi is ti.sq_hi and lo is ti.sq_lo
+    assert tilted is None and len(ti) == 4
+    assert ti[0] is s and ti[:3] == (s, hi, lo)
+
+
+def test_import_ops_loads_no_kernel_module():
+    code = textwrap.dedent("""
+        import sys
+        import clfacedetection_torch.ops as ops
+        assert ops.IntegralImages is not None
+        print(sorted(m for m in sys.modules
+                     if m.startswith("clfacedetection_torch")))
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clfacedetection_torch.kernels" not in out.stdout, out.stdout
+    assert "clfacedetection_torch.ops.integral" in out.stdout
+
+
+@pytest.mark.parametrize("name,strategy", [
+    ("haarcascade_frontalface_alt", None),         # tail2_plain
+    ("haarcascade_frontalface_alt_tree", None),    # the v1 tail, paths
+    ("haarcascade_frontalface_alt2", "direct"),    # stencil, tail_rows
+])
+def test_float64_table_cache(name, strategy):
+    """The plain versions' tables are made once per table, device and
+    dtype (``CascadeTable.cached``): a second float64 run adds no entry,
+    and its packed output is byte-equal to the first's (which made
+    them)."""
+    img = t_synth_face((64, 80))
+    det = ct.PyramidDetector(ct.load_cascade(name), img.shape,
+                             max_stages=6, dtype=torch.float64,
+                             output_levels=True, strategy=strategy,
+                             device="cpu")
+    det.table.cache.clear()
+    frames = det.put(img)
+    first = det._detect_device(frames, det.cap)
+    made = len(det.table.cache)
+    assert made > 0
+    again = det._detect_device(frames, det.cap)
+    assert len(det.table.cache) == made
+    for k in ("packed", "packed_roc"):
+        assert again[k].dtype == first[k].dtype
+        assert again[k].numpy().tobytes() == first[k].numpy().tobytes()

@@ -290,9 +290,12 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
 
 def test_float64_refused_on_cuda_device(face, monkeypatch):
     """float64 is no longer refused on a CUDA device: the detector takes
-    the plain versions in float64 wherever it runs (the kernels are
-    float32), and float32 takes the kernels' wrappers.  Shown with every
-    wrapper replaced by one that fails, which float64 never calls."""
+    the plain versions of the front and the tails in float64 wherever it
+    runs (those kernels are float32), and float32 takes the kernels'
+    wrappers.  Shown with those wrappers replaced by one that fails, which
+    float64 never calls.  The compactions take the compaction's wrapper
+    in float64 too (the kernel has no float type; on the CPU it runs its
+    plain version)."""
     spec = ct.load_cascade("haarcascade_frontalface_alt2")
     f64 = ct.PyramidDetector(spec, SHAPE, max_stages=6, dtype=torch.float64,
                              device="cpu")
@@ -301,12 +304,19 @@ def test_float64_refused_on_cuda_device(face, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel wrapper was called")
 
-    for fn in ("haar_front", "compact", "haar_tail", "haar_tail2",
-               "tail_rows"):
+    calls = []
+
+    def compact(flags, cap):
+        calls.append(cap)
+        return tpyramid.compact_plain(flags, cap)
+
+    for fn in ("haar_front", "haar_tail", "haar_tail2", "tail_rows"):
         monkeypatch.setattr(tpyramid, fn, refuse)
+    monkeypatch.setattr(tpyramid, "compact", compact)
     got, _ = f64.candidates(face)
     assert len(want) > 0
     np.testing.assert_array_equal(got, want)
+    assert len(calls) == 2          # the survivors', then the accepts'
     f32 = ct.PyramidDetector(spec, SHAPE, max_stages=6, device="cpu")
     with pytest.raises(AssertionError, match="wrapper"):
         f32.candidates(face)
