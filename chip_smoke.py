@@ -25,6 +25,17 @@ points and times kernels and paths with CUDA events:
   (alt_tree's regrown 327,680), all padding, a ragged cap, from a CUDA
   graph and at batch 8; timed with events, from a graph and beside its
   plain version, with its bound from the run's exit stages;
+* the v1 route's walk (``csrc/tail_walk.cu``: the default strategy's tail
+  for every cascade tail2 refuses, each survivor's stages walked from the
+  integral planes): bit-equal to its plain version (the entering slots
+  listed, and every slot under a mask as in a float64 graph) and to
+  ``tail_rows`` on ``haar_tail``'s values, on those three cascades at
+  their main paths' slot counts, all padding, a cap that is no multiple
+  of its 16-slot chunk, from a CUDA graph and at batch 8; timed with
+  events, from a graph and beside its plain version and that pair, with
+  its bound from the stages this run's survivors enter; the alt2 and
+  alt_tree frames from their captured graphs on the default route and on
+  ``strategy="block"`` in turns, with the memory each graph reserves;
 * ``strategy="direct"`` (the stencil product, then the decisions kernel)
   on frontalface_alt at 1080p against the CPU's direct path within the
   docs/PARITY.md bounds, timed; the ROC output (``candidates_with_levels``)
@@ -63,9 +74,10 @@ and per frame at batch 8, with CUDA events around back-to-back calls and
 from a replayed CUDA graph (device time alone).  Both lay out their
 shared memory at launch, so every cascade of the zoo runs each tail that
 serves it at 240x320 (tail2 at every ``front_k``; the decisions kernel
-on every cascade), bit-equal to plain.  The v1 path's phase breakdowns
-(alt2 at batch 1 and 8, alt_tree at batch 1) put the decisions kernel's
-time beside its bound and its plain version's time.
+and the walk on every cascade), bit-equal to plain.  The v1 path's phase
+breakdowns (alt2 at batch 1 and 8, alt_tree at batch 1) put the walk's
+time beside its bound, its plain version's time and the pair's time on
+the same slots.
 
 The front is held bit-equal at batch 1 and 8 and at a ragged grid (batch
 2); its per-stage prefix times and the lane work of the old and the new
@@ -145,8 +157,10 @@ calls and a program's warm-up, never a graph capture (which runs
 nothing) and never a replay (which calls no wrapper); the programs count
 their replays.  The ``launches`` of the kernels line are the main paths'
 own runs at the end of the script (frontalface_alt and frontalface_alt2
-at 1080p, batch 1, scale-cascade mode's demo and frontalface_alt loaded
-from XML, each through
+at 1080p, batch 1, frontalface_alt2 on ``strategy="block"`` (the run that
+carries ``haar_tail`` and ``tail_rows`` since the walk took the default
+route), scale-cascade mode's demo and frontalface_alt loaded from XML,
+each through
 ``detect`` and its graph replay), counted from ``torch.profiler``'s kernel
 records by each kernel's symbol, with every count set to 0 just before;
 the profiler runs last because it slows every later launch's host side.
@@ -191,6 +205,10 @@ KERNELS = [
     # XLA on its tail kernel's output
     ("tail_rows", "clfacedetection_torch/csrc/tail_rows.cu",
      "clfacedetection_tpu/detect/pyramid.py:922"),
+    # the default route's v1 tail: the TPU kernel's node values and the
+    # XLA decisions on them, in one walk
+    ("tail_walk", "clfacedetection_torch/csrc/tail_walk.cu",
+     "clfacedetection_tpu/ops/haar_tail.py:116"),
 ]
 V1_CASCADES = ("haarcascade_frontalface_alt2",
                "haarcascade_eye_tree_eyeglasses",
@@ -252,7 +270,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # ("(anonymous namespace)::front_kernel<true, false>(Front)") or mangled
 KERNEL_SYMBOLS = {"haar_front": "front_kernel", "compact": "compact_kernel",
                   "haar_tail2": "tail2_kernel", "haar_tail": "tail_kernel",
-                  "chain": "chain_kernel", "tail_rows": "rows_kernel"}
+                  "chain": "chain_kernel", "tail_rows": "rows_kernel",
+                  "tail_walk": "walk_kernel"}
 
 
 class SmokeFailure(Exception):
@@ -264,9 +283,13 @@ def need(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+T0 = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{phase}] t={time.perf_counter() - T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
 def frame(seed: int, shape=SHAPE):
@@ -842,6 +865,271 @@ def check_rows(det, ii, surv, vnf, stack8=None) -> dict:
     return out
 
 
+def walk_args(det, ii, surv, vnf):
+    """The walk's arguments for slots ``surv``: the planes, the survivors'
+    vnf, the slots, the grid, the table, front_k and the stage-tree
+    paths."""
+    import torch
+    n = det.hv * det.wv
+    valid = (surv >= 0) & (surv < n)
+    svnf = vnf.reshape(surv.shape[0], -1).gather(
+        1, torch.where(valid, surv, 0).long())
+    return (ii.sum, ii.tilted, svnf, surv, det.hv, det.wv, det.table,
+            det.front_k, det.paths if det.is_tree else None)
+
+
+def pair_rows(args):
+    """The rows of the pair that the walk replaces on the default route
+    (the ``"block"`` route's tail), on the walk's arguments: every node's
+    value (``haar_tail``), then ``tail_rows``."""
+    from clfacedetection_torch.ops.haar_tail import haar_tail
+    from clfacedetection_torch.ops.tail_rows import tail_rows
+    s, t, svnf, surv, hv, wv, table, front_k, paths = args
+    return tail_rows(haar_tail(s, t, surv, hv, wv, table), svnf, surv,
+                     hv * wv, table, front_k, paths)
+
+
+def walk_case(det, args, what) -> None:
+    """The walk bit-equal to its plain version and to the pair on
+    ``args``."""
+    from clfacedetection_torch.ops.tail_walk import tail_walk, tail_walk_plain
+    got = tail_walk(*args)
+    need(bits_equal(got, tail_walk_plain(*args)),
+         f"{det.spec.name}: tail_walk ({what}) differs from its plain "
+         f"version")
+    need(bits_equal(got, pair_rows(args)),
+         f"{det.spec.name}: tail_walk ({what}) differs from "
+         f"tail_rows(haar_tail(...))")
+
+
+def walk_entries(args):
+    """The plain walk over the slots that enter each stage (on the card,
+    its CPU way: the entering slots listed) and, by stage, the flat plane
+    indices of the windows it evaluated the stage at (their top-left
+    ``sum`` entries): the walk's own work on this run's data."""
+    from clfacedetection_torch.ops import tail_walk as twalk
+    seen = {}
+    real = twalk._stage_sums
+
+    def spy(flat, base, svnf, table, st, *rest):
+        seen[st] = base.clone()
+        return real(flat, base, svnf, table, st, *rest)
+
+    twalk._stage_sums = spy
+    try:
+        rows = twalk.tail_walk_plain(*args, masked=False)
+    finally:
+        twalk._stage_sums = real
+    return rows, seen
+
+
+def walk_bound(table, entries, surv, n, hp, wp) -> dict:
+    """Bytes: slot indices, each valid slot's vnf, every distinct plane
+    entry (``sum`` and ``tilted``) that the stages the survivors enter
+    read (each entry once, however many windows overlap it), the rows
+    written, the packed table.  Operations: each stage entered, at each
+    window that enters it, its root nodes (a lower bound: a CART walk
+    visits at least its root)."""
+    import numpy as np
+    import torch
+    B, cap = surv.shape
+    n_valid = int(((surv >= 0) & (surv < n)).sum())
+    read = 0
+    for tilted in ((False, True) if table.has_tilted else (False,)):
+        mask = torch.zeros(B * hp * wp, dtype=torch.bool, device=surv.device)
+        for st, bases in entries.items():
+            c0 = int(table.stage_clf0[st])
+            clfs = np.arange(c0, c0 + int(table.stage_cnt[st]))
+            mark(mask, bases, corner_offsets(table, clfs, tilted, wp))
+        read += int(mask.sum())
+    nbytes = B * cap * 4 + n_valid * 4 + read * 4 + B * cap * 16 \
+        + table.packed.nbytes
+    ops_st = stage_ops(table)
+    ops = sum(float(bases.numel()) * ops_st[st]
+              for st, bases in entries.items())
+    return dict(bound(nbytes, ops),
+                windows_entered=sum(b.numel() for b in entries.values()))
+
+
+def once_ms(fn):
+    """``fn()`` and its device ms, CUDA events around one call."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def graph_walk(det, args, want) -> None:
+    """The walk captured in a CUDA graph, replayed three times, each
+    replay bit-equal to ``want``."""
+    import torch
+    from clfacedetection_torch.ops.tail_walk import tail_walk
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(st):
+        tail_walk(*args)
+    torch.cuda.current_stream().wait_stream(st)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=st):
+        gr = tail_walk(*args)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        need(bits_equal(gr, want), f"{det.spec.name}: tail_walk replayed "
+             f"from a CUDA graph differs")
+
+
+def check_walk(det, ii, surv, vnf, stack8=None) -> dict:
+    """The walk at the main path's shapes: bit-equal to its plain version
+    (both ways: the entering slots listed, and every slot under a mask as
+    in a float64 graph) and to the pair it replaces (``tail_rows`` on
+    ``haar_tail``'s values) on the detector's survivors; with every slot
+    padding, at a cap that is no multiple of its 16-slot chunk and from a
+    CUDA graph; with ``stack8``, at batch 8 too.  Timed with CUDA events,
+    from a replayed graph and beside its plain version and the pair; its
+    bound from the stages this run's survivors enter."""
+    import torch
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.tail_walk import tail_walk, tail_walk_plain
+    name = det.spec.name
+    n = det.hv * det.wv
+    hp, wp = ii.sum.shape[1:]
+    args = walk_args(det, ii, surv, vnf)
+    rk = tail_walk(*args)
+    rp, entries = walk_entries(args)
+    rm, plain_ms = once_ms(lambda: tail_walk_plain(*args))
+    need(bits_equal(rk, rp) and bits_equal(rk, rm),
+         f"{name}: tail_walk differs from its plain version")
+    pr = pair_rows(args)
+    need(bits_equal(rk, pr), f"{name}: tail_walk differs from "
+         f"tail_rows(haar_tail(...))")
+    out = dict(max_abs_err=max(max_abs_err(rk, rp), max_abs_err(rk, rm)),
+               pair_max_abs_err=max_abs_err(rk, pr))
+    del rp, rm, pr
+    cases = ["main", "plain_listed", "plain_masked", "pair"]
+    walk_case(det, args[:3] + (torch.full_like(surv, n),) + args[4:],
+              "all padding")
+    cases.append("all_padding")
+    ragged = det.cap - 7
+    need(ragged % 16 != 0, "the ragged cap is a multiple of 16")
+    walk_case(det, args[:2] + (args[2][:, :ragged].contiguous(),
+                               surv[:, :ragged].contiguous()) + args[4:],
+              f"cap {ragged}")
+    cases.append(f"cap_{ragged}")
+    graph_walk(det, args, rk)
+    cases.append("graph")
+    out.update(ms=timed(lambda: tail_walk(*args), 10),
+               graph_ms=graph_ms(lambda: tail_walk(*args), 5),
+               plain_ms=plain_ms,
+               pair_ms=timed(lambda: pair_rows(args), 3),
+               **walk_bound(det.table, entries, surv, n, hp, wp),
+               library_ms=None, accepted=int((rk[..., 1] > 0).sum()),
+               survivors=int(((surv >= 0) & (surv < n)).sum()))
+    del args, rk, entries
+    if stack8 is not None:
+        ii8 = det._prep_planes(det.put(stack8))
+        fk8, vk8 = haar_front(ii8.sum, ii8.sq_hi, ii8.sq_lo, det._visit,
+                              det.table, det.front_k, tilted=ii8.tilted)
+        surv8, _ = compact(fk8.reshape(fk8.shape[0], -1), det.cap)
+        a8 = walk_args(det, ii8, surv8, vk8)
+        walk_case(det, a8, "batch 8")
+        cases.append("batch8")
+        B8 = surv8.shape[0]
+        _, e8 = walk_entries(a8)
+        _, p8 = once_ms(lambda: tail_walk_plain(*a8))
+        out.update(batch8_ms_per_frame=timed(lambda: tail_walk(*a8), 10) / B8,
+                   batch8_graph_ms_per_frame=graph_ms(
+                       lambda: tail_walk(*a8), 5) / B8,
+                   batch8_plain_ms_per_frame=p8 / B8,
+                   batch8_pair_ms_per_frame=timed(
+                       lambda: pair_rows(a8), 3) / B8,
+                   batch8_bound_ms_per_frame=walk_bound(
+                       det.table, e8, surv8, n, hp, wp)["bound_ms"] / B8)
+        del a8, e8
+    out["cases"] = cases
+    say("kernel", name="tail_walk", cascade=name, slots=det.cap,
+        cases=",".join(cases), equal_to_plain=True, equal_to_pair=True,
+        **{k: v for k, v in out.items() if k != "cases"})
+    return out
+
+
+def walk_scenes(det, scenes) -> dict:
+    """The walk on each scene of ``scenes`` (name -> a frame) at batch 1
+    and at batch 8 (eight copies of the frame, or ``stack8`` for
+    ``synth``): bit-equal to its plain version on the front's survivors
+    (the cap grown 4x while a frame overflows it), its device ms a frame
+    (CUDA events around back-to-back calls) and its bound a frame from
+    the stages this run's survivors enter."""
+    import numpy as np
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.tail_walk import tail_walk
+    out = {}
+    for scene, frames in scenes.items():
+        for frames_ in (frames[:1], frames if len(frames) == BATCH
+                        else np.stack([frames[0]] * BATCH)):
+            B = len(frames_)
+            ii = det._prep_planes(det.put(frames_))
+            fk, vk = haar_front(ii.sum, ii.sq_hi, ii.sq_lo, det._visit,
+                                det.table, det.front_k, tilted=ii.tilted)
+            flat = fk.reshape(B, -1)
+            n_true = int(flat.sum(1).max())
+            cap = det.cap
+            while cap < n_true:
+                cap *= 4
+            surv, _ = compact(flat, cap)
+            args = walk_args(det, ii, surv, vk)
+            rp, entries = walk_entries(args)
+            need(bits_equal(tail_walk(*args), rp),
+                 f"{det.spec.name}: tail_walk on {scene} at batch {B} "
+                 f"differs from its plain version")
+            b = walk_bound(det.table, entries, surv, det.hv * det.wv,
+                           *ii.sum.shape[1:])
+            out[f"{scene}_b{B}"] = dict(
+                cap=cap, survivors=int(flat.sum()),
+                windows_entered=b["windows_entered"],
+                ms_per_frame=timed(lambda: tail_walk(*args), 10) / B,
+                bound_ms_per_frame=b["bound_ms"] / B, bound_by=b["bound_by"])
+            del args, rp, entries, ii, fk, vk, surv
+    say("walk_scenes", cascade=det.spec.name, equal_to_plain=True,
+        **{k: json.dumps(v) for k, v in out.items()})
+    return out
+
+
+def route_programs(ct, det, gray, what):
+    """The frame on the default route (the walk) and on ``"block"`` (the
+    pair), each from a fresh detector's captured graph at ``det``'s cap,
+    in turns: ``program_case`` of each, and the memory its capture left
+    reserved (``memory_reserved`` after the capture and ``empty_cache``,
+    less before it)."""
+    import torch
+    out = []
+    for strategy in (None, "block"):
+        d = ct.PyramidDetector(det.spec, SHAPE, device="cuda",
+                               strategy=strategy, **dict(KNOBS, cap=det.cap))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        d.program(1, d.cap)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool = (torch.cuda.memory_reserved() - r0) / 1e9
+        route = "block" if strategy else "walk"
+        rec = program_case(d, gray[None], f"{what} {route}", reps=3)
+        rec["graph_reserved_gb"] = pool
+        say("programs", case=f"{what} {route}", graph_reserved_gb=pool)
+        release_programs(d)
+        del d
+        out.append(rec)
+    return out
+
+
 def _iou(a, b) -> float:
     iw = max(0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
     ih = max(0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
@@ -1217,7 +1505,8 @@ def check_v1(det, gray, stack8=None) -> dict:
     say("kernel", name="haar_tail", cascade=name, slots=det.cap,
         nodes=n_nodes, **tail)
     out = {"haar_front": front, "haar_tail": tail,
-           "tail_rows": check_rows(det, ii, surv, vk, stack8)}
+           "tail_rows": check_rows(det, ii, surv, vk, stack8),
+           "tail_walk": check_walk(det, ii, surv, vk, stack8)}
     if det.table.has_tilted:
         canvas = det._assemble_canvas(frames)
         out["rsat_ms"] = timed(lambda: tilted_integral(canvas), 10)
@@ -1232,9 +1521,10 @@ def check_zoo_tails(ct) -> dict:
     """Each tail's block laid out and launched for every cascade of the
     zoo on a 240x320 ``synth_scene``, bit-equal to its plain version on
     the front's survivors: tail2 at every ``front_k`` of the cascades it
-    serves (every stage count of its shared-memory layout), the v1 tail
-    and its decisions kernel at the detector's ``front_k`` for all (the
-    patch stride, slots a block, T and the stage tree)."""
+    serves (every stage count of its shared-memory layout), the v1 tail,
+    its decisions kernel and the walk at the detector's ``front_k`` for
+    all (the patch stride, slots a block, T, the round of records and the
+    stage tree; the walk also equal to the pair)."""
     import glob
     import torch
     from clfacedetection_torch.models.zoo import artifact_dir
@@ -1269,12 +1559,13 @@ def check_zoo_tails(ct) -> dict:
         need(bits_equal(haar_tail(*args), tail_values_plain(*args)),
              f"{cname}: v1 tail differs from plain")
         rows_case(det, rows_args(det, ii, surv, vnf), "zoo")
+        walk_case(det, walk_args(det, ii, surv, vnf), "zoo")
         served[cname] = "tail2+v1" if det.use_tail2 else "v1"
         del det, ii
     torch.cuda.synchronize()
     say("zoo_tails", shape=f"{shape[0]}x{shape[1]}", cascades=len(served),
         tail2=sum(v != "v1" for v in served.values()), tail_rows=len(served),
-        equal_to_plain=True)
+        tail_walk=len(served), equal_to_plain=True)
     return served
 
 
@@ -1748,8 +2039,7 @@ def check_config5(ct, counters, frames8):
     routes = count_routes(counters)
     first_s = time.perf_counter() - t0
     need(all(launches[k] > 0 for k in ("haar_front", "compact",
-                                       "haar_tail2", "haar_tail",
-                                       "tail_rows")),
+                                       "haar_tail2", "tail_walk")),
          f"config 5 did not run both tails' kernels: {launches}")
     prog = multi._program
     caps = prog.key[1]
@@ -1805,25 +2095,23 @@ def dtoh_copies(fn) -> int:
 
 
 def breakdown(det, frames) -> dict:
-    """Device ms per frame of each phase of the v1 path, from CUDA events
-    recorded between the phases of one pass (one synchronise); the votes
-    and stage sums are the decisions kernel.  Beside them, on the last
-    pass's inputs: the plain version of that phase (the parent's torch
-    code) and the kernel's bound, per frame."""
+    """Device ms per frame of each phase of the v1 path's default route,
+    from CUDA events recorded between the phases of one pass (one
+    synchronise): the tail is the walk (``tail_walk``).  In the same pass,
+    on the same slots, the pair that the ``"block"`` route runs instead
+    (``haar_tail`` then ``tail_rows``), and ``block_total``, the frame with
+    the pair in the walk's place.  The walk's plain version and bound at
+    these shapes are ``check_walk``'s."""
     import torch
     from clfacedetection_torch.detect.pyramid import ACCEPT_CAP
     from clfacedetection_torch.ops.compact_kernel import compact
     from clfacedetection_torch.ops.haar_front import haar_front
-    from clfacedetection_torch.ops.haar_tail import haar_tail
-    from clfacedetection_torch.ops.tail_rows import tail_rows, tail_rows_plain
+    from clfacedetection_torch.ops.tail_walk import tail_walk
     B, cap = frames.shape[0], det.cap
-    names = ("prep", "haar_front", "compact", "haar_tail", "votes_stages",
-             "accept_pack")
-    n = det.hv * det.wv
-    paths = det.paths if det.is_tree else None
+    names = ("prep", "haar_front", "compact", "tail_walk", "accept_pack",
+             "block_tail")
     best = None
     for _ in range(4):                          # first pass warms up
-        values = None                           # the last pass's, freed
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
         ii = det._prep_planes(frames)
@@ -1833,31 +2121,25 @@ def breakdown(det, frames) -> dict:
         ev[2].record()
         surv, n_surv = compact(front.reshape(B, -1), cap)
         ev[3].record()
-        values = haar_tail(ii.sum, ii.tilted, surv, det.hv, det.wv,
-                           det.table)
+        args = walk_args(det, ii, surv, vnf)
+        rows = tail_walk(*args)
         ev[4].record()
-        valid = (surv >= 0) & (surv < n)
-        svnf = vnf.reshape(B, -1).gather(1, torch.where(valid, surv,
-                                                        0).long())
-        rows = tail_rows(values, svnf, surv, n, det.table, det.front_k,
-                         paths)
-        ev[5].record()
         ok = rows[..., 1] > 0
         acc, n_acc = compact(ok, min(cap, ACCEPT_CAP))
         flat = surv.gather(1, torch.where(acc < cap, acc, 0).long())
         torch.cat([n_surv[:, None], n_acc[:, None], flat], dim=1)
+        ev[5].record()
+        pair = pair_rows(args)
         ev[6].record()
         torch.cuda.synchronize()
+        del pair
         t = [ev[i].elapsed_time(ev[i + 1]) / B for i in range(6)]
-        if best is None or sum(t) < sum(best):
+        if best is None or sum(t[:5]) < sum(best[:5]):
             best = t
-    args = (values, svnf, surv, n, det.table, det.front_k, paths)
-    plain = timed(lambda: tail_rows_plain(*args), 1) / B
-    bnd = rows_bound(det.table, rows, surv, n, det.front_k,
-                     det.is_tree)["bound_ms"] / B
-    del values, args
-    return dict(zip(names, best), total=sum(best),
-                votes_stages_plain=plain, votes_stages_bound=bnd)
+    del args
+    total = sum(best[:5])
+    return dict(zip(names, best), total=total,
+                block_total=total - best[3] + best[5])
 
 
 # ---- this slice's phases: XML cascades, the native library, the C
@@ -2638,8 +2920,7 @@ def check_mesh(ct, counters, spec, frames8, photo, sc_det, sc_frame):
                     read_run(m5m.run_device(frames8), "packed_all")),
          "config 5 mesh: the packed readback differs from the unsharded "
          "graph's")
-    front_path(l5, "config 5 mesh", ("haar_tail2", "haar_tail",
-                                     "tail_rows"))
+    front_path(l5, "config 5 mesh", ("haar_tail2", "tail_walk"))
     rec["config5"] = dict(caps=list(m5m._caps()), packed_equal=True,
                           launches=l5,
                           nodes=graph_nodes(m5m._programs[1]))
@@ -2688,7 +2969,7 @@ def check_mesh(ct, counters, spec, frames8, photo, sc_det, sc_frame):
     (ngot, ngovf), nl = count_run(counters, lambda: nsd.candidates(vga))
     need(np.array_equal(ngot, nref) and ngovf == novf,
          "strips of mcs_nose: candidates differ from the single detector")
-    front_path(nl, "strips mcs_nose", ("haar_tail", "tail_rows"))
+    front_path(nl, "strips mcs_nose", ("tail_walk",))
     strips["mcs_nose_vga_k4"] = dict(candidates=len(ngot), launches=nl)
     say("mesh", case="strips_mcs_nose_vga_k4", equal_to_single=True,
         candidates=len(ngot), launches=json.dumps(nl))
@@ -2769,9 +3050,11 @@ def main() -> int:
     from clfacedetection_torch.ops.haar_tail2 import haar_tail2
     from clfacedetection_torch.ops.chain import chain
     from clfacedetection_torch.ops.tail_rows import tail_rows
+    from clfacedetection_torch.ops.tail_walk import tail_walk
     counters = {"haar_front": haar_front, "compact": compact,
                 "haar_tail2": haar_tail2, "haar_tail": haar_tail,
-                "chain": chain, "tail_rows": tail_rows}
+                "chain": chain, "tail_rows": tail_rows,
+                "tail_walk": tail_walk}
 
     def counted(fn):
         return count_run(counters, fn)
@@ -2827,7 +3110,7 @@ def main() -> int:
     need(all(launches[k] > 0 for k in ("haar_front", "compact",
                                        "haar_tail2"))
          and launches["haar_tail"] == 0 and launches["chain"] == 0
-         and launches["tail_rows"] == 0,
+         and launches["tail_rows"] == 0 and launches["tail_walk"] == 0,
          f"tail2's path did not run its kernels: {launches}")
     need(not res.survivor_overflow, "survivor cap overflowed")
     need(len(res.candidates) > 0, "no candidates at 1080p")
@@ -2848,6 +3131,7 @@ def main() -> int:
     need(all(photo_launches[k] > 0 for k in ("haar_front", "compact",
                                              "haar_tail2"))
          and photo_launches["haar_tail"] == 0
+         and photo_launches["tail_walk"] == 0
          and photo_launches["chain"] == 0,
          f"photo_scene did not run tail2's path: {photo_launches}")
     need(not pres.survivor_overflow, "photo_scene: survivor cap overflowed")
@@ -2960,29 +3244,35 @@ def main() -> int:
         vres, vl = drive(vdet, gray)
         if vdet.is_tree:
             tree_cands = vres.candidates
-        need(all(vl[k] > 0 for k in ("haar_front", "compact", "haar_tail",
-                                     "tail_rows"))
-             and vl["haar_tail2"] == 0,
+        need(all(vl[k] > 0 for k in ("haar_front", "compact", "tail_walk"))
+             and vl["haar_tail2"] == 0 and vl["haar_tail"] == 0
+             and vl["tail_rows"] == 0,
              f"{cname}: the v1 path did not run its kernels: {vl}")
         same_as_plain(vdet, gray, vres, f"1080p {cname}")
         v1_launches[cname] = vl
         say("detect", cascade=cname, candidates=len(vres.candidates),
             overflow=vres.survivor_overflow, cap=vdet.cap,
             launches=json.dumps(vl), boxes=json.dumps(vres.boxes.tolist()))
-        if cname != V1_CASCADES[1]:
-            # the programs phase's v1 cases: the graph at the cap the main
-            # path regrew to (alt_tree: 327,680 slots) against the eager
-            # path; then the graph is let go, for the plain versions' room
-            programs[cname] = program_case(vdet, gray[None], cname, reps=3)
-            programs[cname]["max_reserved_gb"] = \
-                torch.cuda.max_memory_reserved() / 1e9
         if vdet._program is not None:
             vdet._program.release()
             vdet._program = None
+        if cname != V1_CASCADES[1]:
+            # the programs phase's v1 cases: the graph at the cap the main
+            # path regrew to (alt_tree: 327,680 slots) against the eager
+            # path, on the default route (the walk) and on "block" (the
+            # pair) in turns, with the memory each graph reserves; each
+            # graph is let go, for the plain versions' room
+            programs[cname], programs[cname + "_block"] = route_programs(
+                ct, vdet, gray, cname)
+            programs[cname]["max_reserved_gb"] = \
+                torch.cuda.max_memory_reserved() / 1e9
         # after the main path, so that the kernels are held to their plain
         # versions at the slot count it ran with (regrown where it overflowed)
         v1[cname] = check_v1(vdet, gray, None if vdet.is_tree
                              else np.stack(list(stack.values())))
+        # the walk on both scenes, batch 1 and 8
+        v1[cname]["tail_walk"]["scenes"] = walk_scenes(vdet, {
+            "synth": np.stack(list(stack.values())), "photo": photo[None]})
         if vdet.is_tree:
             # the frame of the cascade with the most survivors, batch 1
             tree_phases = {cname: {"1": breakdown(vdet, vdet.put(gray))}}
@@ -2996,7 +3286,7 @@ def main() -> int:
                             **KNOBS)
     bres, bll = drive(bl, gray)
     need(bll["haar_tail"] > 0 and bll["tail_rows"] > 0
-         and bll["haar_tail2"] == 0,
+         and bll["haar_tail2"] == 0 and bll["tail_walk"] == 0,
          f"strategy=block did not take the v1 tail: {bll}")
     need(np.array_equal(bres.candidates, res.candidates)
          and np.array_equal(bres.boxes, res.boxes),
@@ -3013,7 +3303,8 @@ def main() -> int:
                             **KNOBS)
     dres, dl = drive(dr, gray)
     need(all(dl[k] > 0 for k in ("haar_front", "compact", "tail_rows"))
-         and dl["haar_tail"] == 0 and dl["haar_tail2"] == 0,
+         and dl["haar_tail"] == 0 and dl["haar_tail2"] == 0
+         and dl["tail_walk"] == 0,
          f"strategy=direct did not run its kernels: {dl}")
     t1 = time.perf_counter()
     cres = ct.PyramidDetector(spec, SHAPE, device="cpu", strategy="direct",
@@ -3041,7 +3332,7 @@ def main() -> int:
     # the plain path's on the card
     roc = {}
     for cname, tail in ((CASCADE, "haar_tail2"), (V1_CASCADES[0],
-                                                  "tail_rows")):
+                                                  "tail_walk")):
         rd = ct.PyramidDetector(ct.load_cascade(cname), SHAPE,
                                 device="cuda", output_levels=True, **KNOBS)
         (rb, rlv, rw, rov), rl = counted(
@@ -3099,6 +3390,10 @@ def main() -> int:
     a2 = V1_CASCADES[0]
     a2spec = ct.load_cascade(a2)
     a2det = ct.PyramidDetector(a2spec, SHAPE, device="cuda", **KNOBS)
+    # the "block" route's detector: the main-path run that carries the
+    # v1 pair (haar_tail, tail_rows) at the end
+    a2blk = ct.PyramidDetector(a2spec, SHAPE, device="cuda", strategy="block",
+                               **KNOBS)
     a2b = stream_equals_singles(a2spec, a2det, a2)
     smem = check_smem_setups([(det, gray), (a2det, gray)])
     phases = {}
@@ -3212,8 +3507,9 @@ def main() -> int:
     main = {}
     for what, mdet, img, uses in (
             (CASCADE, det, gray, ("haar_front", "compact", "haar_tail2")),
-            (a2, a2det, gray, ("haar_front", "compact", "haar_tail",
-                               "tail_rows")),
+            (a2, a2det, gray, ("haar_front", "compact", "tail_walk")),
+            ("block_" + a2, a2blk, gray, ("haar_front", "compact",
+                                          "haar_tail", "tail_rows")),
             ("scale_cascade", sc_det, sc_frame, ("compact",)),
             ("xml_" + CASCADE, xdet, gray, ("haar_front", "compact",
                                             "haar_tail2")),
@@ -3232,17 +3528,21 @@ def main() -> int:
     entry = dict(results)
     entry["haar_tail"] = v1[a2]["haar_tail"]
     entry["tail_rows"] = v1[a2]["tail_rows"]
+    entry["tail_walk"] = v1[a2]["tail_walk"]
     paths = {CASCADE: launches, "photo_scene": photo_launches,
              **v1_launches, "mb_vpu3": mb_launches,
              "direct": direct["launches"],
              "scale_cascade": sc["demo"]["launches"]}
     # each kernel's launches in its main path's run: the compaction's on
     # scale-cascade mode's path (the demo configuration), the slice this
-    # record was extended for; the chain's in the mb_vpu3 run (eager)
+    # record was extended for; the v1 pair's on alt2's "block" route,
+    # which carries it since the walk took the default route; the chain's
+    # in the mb_vpu3 run (eager)
     path_of = {"haar_front": main[CASCADE]["launches"],
                "haar_tail2": main[CASCADE]["launches"],
-               "haar_tail": main[a2]["launches"],
-               "tail_rows": main[a2]["launches"],
+               "haar_tail": main["block_" + a2]["launches"],
+               "tail_rows": main["block_" + a2]["launches"],
+               "tail_walk": main[a2]["launches"],
                "compact": main["scale_cascade"]["launches"],
                "chain": mb_launches}
     entry["compact"] = dict(

@@ -22,11 +22,13 @@ batch size at the current cap, replayed, its packed output copied to a
 pinned host slot (JAX's ``_jit_pipeline``).  Three survivor tails, as in the
 JAX package (``pyramid.py:427-481``): tail2 walks the cascade inside its
 kernel with early exit and serves stump cascades with upright features,
-sequential stages and windows up to 31 px wide; the v1 tail computes
-every node's value in one kernel (``haar_tail``) and takes the CART
-walks, stage sums and stage-tree path tests in a second (``tail_rows``).
-It serves every other cascade of the zoo (CART trees, tilted features,
-stage trees, wide windows) and ``strategy="block"``.
+sequential stages and windows up to 31 px wide; the v1 tail serves
+every other cascade of the zoo (CART trees, tilted features, stage
+trees, wide windows).  On the default strategy it is one kernel that
+walks each survivor's stages from the integral planes (``tail_walk``);
+``strategy="block"`` keeps JAX's v1 structure for every cascade: every
+node's value in one kernel (``haar_tail``), then the CART walks, stage
+sums and stage-tree path tests in a second (``tail_rows``).
 ``strategy="direct"`` takes the node values from one stencil matrix
 product instead (JAX's XLA tail; ``ops/stencil.py``), then the same
 ``tail_rows``.  With ``output_levels`` every frame also packs its ROC
@@ -61,6 +63,7 @@ from ..ops.integral import IntegralImages, integral_images
 from ..ops.resize import ResizePlan, resize_bilinear_u8, resize_plan
 from ..ops.stencil import build_stencils, stencil_values
 from ..ops.tail_rows import tail_rows, tail_rows_plain
+from ..ops.tail_walk import tail_walk, tail_walk_plain
 from .detector import (STRATEGIES, DetectionResult, _build_clf_tables,
                        _stage_paths, default_device)
 from .grouping import group_rectangles
@@ -211,7 +214,8 @@ class PyramidDetector:
     survivor slot count per frame; it grows 4x while a frame overflows it
     (``candidates``/``detect``).  ``strategy`` picks the survivor tail:
     ``None``/``"per_stage"`` take tail2 where the cascade allows it and
-    the v1 tail otherwise; ``"block"`` always takes the v1 tail;
+    the v1 tail's walk (``tail_walk``) otherwise; ``"block"`` always takes
+    the v1 tail's node values and decisions (``haar_tail``, ``tail_rows``);
     ``"direct"`` the stencil product.  ``output_levels`` adds the ROC
     output (``candidates_with_levels``); for sequential cascades it lowers
     ``front_k`` to ``n_stages - 4``, so that every window the ROC reports
@@ -416,15 +420,22 @@ class PyramidDetector:
                                  n_surv, cap, plain)
 
     def _tail_v1(self, s, tilted, vnf, surv_idx, plain: bool = False):
-        """The v1 tail: every node's value (``haar_tail``, or the stencil
-        product for ``strategy="direct"``), then votes, stage sums and
-        accept (``tail_rows``), as tail2's rows [B, cap, 4]."""
-        rows_fn = tail_rows_plain if plain else tail_rows
+        """The v1 tail, as tail2's rows [B, cap, 4]: on the default
+        strategy one walk of each survivor's stages from the planes
+        (``tail_walk``); with ``strategy="block"`` JAX's structure, every
+        node's value (``haar_tail``) then votes, stage sums and accept
+        (``tail_rows``); with ``"direct"`` the stencil product then
+        ``tail_rows``."""
         n = self.hv * self.wv
         valid = (surv_idx >= 0) & (surv_idx < n)
         svnf = vnf.reshape(vnf.shape[0], -1).gather(
             1, torch.where(valid, surv_idx, 0).long())
         paths = self.paths if self.is_tree else None
+        if self.strategy not in ("block", "direct"):
+            walk_fn = tail_walk_plain if plain else tail_walk
+            return walk_fn(s, tilted, svnf, surv_idx, self.hv, self.wv,
+                           self.table, self.front_k, paths)
+        rows_fn = tail_rows_plain if plain else tail_rows
         if self.strategy == "direct":
             return self._tail_direct(s, tilted, svnf, surv_idx, rows_fn,
                                      paths)

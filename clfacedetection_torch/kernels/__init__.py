@@ -53,6 +53,7 @@ _SIGNATURES = {
     "clfd_haar_tail2": [_P] * 5 + [_I] * 11 + [_P],
     "clfd_haar_tail": [_P] * 5 + [_I] * 9 + [_P],
     "clfd_tail_rows": [_P] * 6 + [_I] * 9 + [_P],
+    "clfd_tail_walk": [_P] * 8 + [_I] * 14 + [_P],
     "clfd_chain": [_P] * 2 + [_I] * 4 + [_P],
     "clfd_smem_setups": [],
 }
