@@ -59,11 +59,15 @@ points and times kernels and paths with CUDA events:
   rough search; frontalface_alt at 1080p timed, float32 against the
   card's float64; its launches a frame from the profiler at the end;
 * the chain microbenchmark (``mb_vpu3``): the chain kernel bit-equal to its
-  plain version at float32 [2272, 384] -> [2272, 1280] for its five bodies
-  at 4 and 16 trips, then the tool ``clfacedetection_torch.tools.mb_vpu3``
-  with every count from 0: the op rates, the SASS of the trip loops
-  (checked to hold the source's slice reads and float operations), the
-  bf16 product chain and the front sweep on ``photo_scene``.
+  plain version at float32 [2272, 384] -> [2272, 1280] and at 64 x 512 for
+  its five bodies at 4 and 16 trips, then the tool
+  ``clfacedetection_torch.tools.mb_vpu3`` with every count from 0: the op
+  rates, the SASS of the trip loops (checked: each
+  trip loads its window's shared words once, holds at least the source's
+  float operations and loads nothing from device memory), their issue and
+  shared-memory floors at the SM clock sampled meanwhile, ``ptxas``'s
+  spills (none allowed), the bf16 product chain and the front sweep on
+  ``photo_scene``.
 
 tail2 is held bit-equal at batch 1 and 8, on ``photo_scene``, with every
 slot padding, at a cap that is no multiple of its 16-slot chunk, with an
@@ -117,7 +121,8 @@ Early on, the ``context`` line times the compaction's eager call with the
 wrappers' old device context (entered on every launch) and with
 ``kernels.on_device`` (entered only for another card), and the ``smem``
 line checks that launches on another stream of a card that is set up do
-no shared-memory setup (``csrc/launch.cuh``).
+no shared-memory setup (``csrc/launch.cuh``): the pipelines of two
+detectors and the chain kernel's five bodies.
 
 Four phases then take cascade files and the host's native code: ``xml``
 writes every zoo cascade as OpenCV XML (the port's writer), loads each by
@@ -1569,40 +1574,45 @@ def check_zoo_tails(ct) -> dict:
     return served
 
 
-# shared loads of one trip and element in the source, and the fewest float
-# instructions that its operations can compile to (compare and select may
-# merge into one instruction)
-CHAIN_SASS_MIN = {"slices": (32, 33), "arith": (1, 48), "cmpsel": (1, 32),
-                  "rect": (32, 48)}
+# the chain's second shape, where a block's run of tiles is short (most
+# blocks of the grid get none)
+CHAIN_SMALL = (64, 512)
 
 
 def check_chain() -> dict:
-    """The chain kernel bit-equal to its plain version at the JAX's full
-    shape, float32 [2272, 384] -> [2272, 1280], for every body at 4 and 16
-    trips; the plain version's time and the bound of each.  Bytes: x read
-    once, the output written once; operations: the JAX's ops a trip for
-    every element and trip."""
+    """The chain kernel bit-equal to its plain version for every body at 4
+    and 16 trips, at the JAX's full shape, float32 [2272, 384] -> [2272,
+    1280], and at ``CHAIN_SMALL``; at the full shape the plain version's
+    time and the bound of each.  Bytes: x read once, the output written
+    once; operations: the arithmetic of a trip (``FLOAT_OPS``: the JAX's
+    operations but rect's 32 slices, which the kernel reads from
+    registers) for every element and trip."""
     import numpy as np
     import torch
-    from clfacedetection_torch.ops.chain import (BODIES, GH, GW, IN_W,
-                                                 OPS_PER_TRIP, chain,
-                                                 chain_plain)
-    x = torch.from_numpy(np.random.default_rng(11).random(
-        (GH, IN_W)).astype(np.float32)).cuda()
+    from clfacedetection_torch.ops.chain import (BODIES, FLOAT_OPS, GH, GW,
+                                                 IN_W, chain, chain_plain)
     out = {}
-    for body in BODIES:
-        for tr in CHAIN_TRIPS:
-            k = chain(x, body, tr)
-            p = chain_plain(x, body, tr)
-            torch.cuda.synchronize()
-            need(bits_equal(k, p), f"chain {body} at {tr} trips differs "
-                 f"from its plain version")
-            out[f"{body}@{tr}"] = dict(
-                max_abs_err=max_abs_err(k, p),
-                plain_ms=timed(lambda: chain_plain(x, body, tr), 3),
-                **bound(x.numel() * 4 + GH * GW * 4,
-                        float(GH * GW * OPS_PER_TRIP[body] * tr)))
+    for gh, gw in ((GH, GW), CHAIN_SMALL):
+        x = torch.from_numpy(np.random.default_rng(11).random(
+            (gh, IN_W)).astype(np.float32)).cuda()
+        for body in BODIES:
+            for tr in CHAIN_TRIPS:
+                p = chain_plain(x, body, tr, gw)
+                k = chain(x, body, tr, gw)
+                torch.cuda.synchronize()
+                need(bits_equal(k, p), f"chain {body} at {tr} trips, "
+                     f"{gh}x{gw} differs from its plain version")
+                if (gh, gw) != (GH, GW):
+                    out[f"{body}@{tr}"]["max_abs_err_small"] = \
+                        max_abs_err(k, p)
+                    continue
+                out[f"{body}@{tr}"] = dict(
+                    max_abs_err=max_abs_err(k, p),
+                    plain_ms=timed(lambda: chain_plain(x, body, tr), 3),
+                    **bound(x.numel() * 4 + GH * GW * 4,
+                            float(GH * GW * FLOAT_OPS[body] * tr)))
     say("kernel", name="chain", shape=f"{GH}x{IN_W}->{GH}x{GW}",
+        small=f"{CHAIN_SMALL[0]}x{IN_W}->{CHAIN_SMALL[0]}x{CHAIN_SMALL[1]}",
         bodies=",".join(BODIES), trips=CHAIN_TRIPS, equal_to_plain=True,
         bounds=json.dumps({k: round(v["bound_ms"], 5)
                            for k, v in out.items()}))
@@ -1610,15 +1620,84 @@ def check_chain() -> dict:
 
 
 def check_sass(sass: dict) -> None:
-    """Every slice read and chain operation of the source inside the
-    kernel's trip loop (counted from its SASS by the tool)."""
-    for body, (loads, floats) in CHAIN_SASS_MIN.items():
+    """Each chain body's trip loop (counted from its SASS by the tool, at
+    the width C that its kernel's name gives): its shared words an element
+    equal its window's words over C (every word of the window loaded once
+    a trip, none more), at least the JAX's arithmetic operations as float
+    instructions an element, and no load that may read device memory."""
+    from clfacedetection_torch.ops.chain import (BODIES, FLOAT_OPS,
+                                                 window_words)
+    for body in BODIES[1:]:
         c = sass.get(body)
         need(c is not None, f"no SASS for chain body {body}")
-        need(c["shared_loads"] == loads and c["float_ops"] >= floats,
-             f"chain {body}: the trip loop holds {c['shared_loads']} shared "
-             f"loads and {c['float_ops']} float instructions an element, "
-             f"the source {loads} and at least {floats}")
+        words = window_words(body, c["cols"]) / c["cols"]
+        need(c["shared_words"] == words
+             and c["float_ops"] >= FLOAT_OPS[body]
+             and c["global_loads"] == 0,
+             f"chain {body} at {c['cols']} columns: the trip loop reads "
+             f"{c['shared_words']} shared words and holds "
+             f"{c['float_ops']} float instructions an element and "
+             f"{c['global_loads']} global loads; the window is {words} "
+             f"words an element, the source {FLOAT_OPS[body]} operations")
+
+
+def check_chain_spills(ptxas: dict) -> None:
+    """``ptxas`` reported every ``chain_kernel`` instance (one a body)
+    and spilled nothing in any."""
+    from clfacedetection_torch.ops.chain import BODIES
+    need(len(ptxas) == len(BODIES),
+         f"ptxas reported {len(ptxas)} chain kernels")
+    for name, p in ptxas.items():
+        need(p.get("spill_stores") == 0 and p.get("spill_loads") == 0,
+             f"ptxas: {name} spills ({p})")
+
+
+def chain_record(checks: dict, tool: dict) -> dict:
+    """The chain's entry of the kernels line from ``check_chain``'s checks
+    and the ``mb_vpu3`` tool's run, after the SASS invariant and ptxas's
+    spills are checked: the headline (slices at 16 trips), and per body
+    and trip count the time, the width C, the trip loop's issue and shared
+    floors at the SM clock sampled during the timings, the shares of the
+    issue floor in the time and in the trips' slope, the bound and the T
+    op/s by the JAX's op counts."""
+    check_sass(tool["sass"])
+    check_chain_spills(tool["ptxas"])
+    chains, fl = tool["chains"], tool["floors"]
+    need(fl is not None, "no SM clock read during the chain timings")
+    per_body = {}
+    for key, v in checks.items():
+        body, tr = key.split("@")[0], int(key.split("@")[1])
+        rec = dict(v)
+        cols = tool["sass"][body]["cols"]
+        if body != "empty":
+            rec.update(ms=chains[body]["ms"][tr],
+                       tops=chains[body]["tops_at"][tr], cols=cols,
+                       **fl[body][tr])
+            rec["share_of_issue_floor"] = rec["issue_ms"] / rec["ms"]
+            rec["slope_share_of_issue_floor"] = rec["issue_ms"] / (
+                chains[body]["trip_ms"] * tr)
+        per_body[key] = rec
+        if body != "empty":
+            say("chain", body=body, trips=tr, cols=cols,
+                **{k: round(rec[k], 5) for k in (
+                    "ms", "issue_ms", "shared_ms", "bound_ms", "tops",
+                    "share_of_issue_floor", "slope_share_of_issue_floor")})
+    head = per_body[f"slices@{CHAIN_TRIPS[-1]}"]
+    return dict(
+        max_abs_err=max(max(c["max_abs_err"], c["max_abs_err_small"])
+                        for c in checks.values()),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None,
+        headline=f"slices at {CHAIN_TRIPS[-1]} trips, "
+                 f"{tool['sass']['slices']['cols']} columns a thread",
+        per_body=per_body,
+        clock=tool["clock"], empty_ms=tool["empty_ms"],
+        rates={b: dict(tops=c["tops"], ps_per_elem_op=c["ps_per_elem_op"],
+                       ms=c["ms"], spread=c["spread"])
+               for b, c in chains.items()},
+        floors=fl, sass=tool["sass"],
+        ptxas=tool["ptxas"], matmul=tool["matmul"],
+        front_sweep=tool["front"])
 
 
 def best_ms(det, gray, reps: int = 3) -> float:
@@ -2583,15 +2662,20 @@ def context_cost(flags, cap) -> dict:
 def check_smem_setups(cases) -> dict:
     """``ClfdSmem`` (``csrc/launch.cuh``) keeps each kernel's shared-memory
     limits per device: once the eager pipeline of each (detector, frame)
-    of ``cases`` ran on the current stream, running them again on another
-    stream of the card, then on the current stream, sets nothing up
-    (``kernels.smem_setups()`` stays put)."""
+    of ``cases`` and the chain kernel's five bodies ran on the current
+    stream, running them again on another stream of the card, then on the
+    current stream, sets nothing up (``kernels.smem_setups()`` stays
+    put)."""
     import torch
     from clfacedetection_torch import kernels
+    from clfacedetection_torch.ops.chain import BODIES, IN_W, chain
+    x = torch.rand((32, IN_W), device="cuda")
 
     def run_all():
         for det, gray in cases:
             det._detect_device(det.put(gray), det.cap)
+        for body in BODIES:
+            chain(x, body, 1, 256)
 
     run_all()
     torch.cuda.synchronize()
@@ -2608,7 +2692,7 @@ def check_smem_setups(cases) -> dict:
          f"ClfdSmem: {after - before} setups on a card already set up "
          f"({before} before)")
     rec = dict(setups=after, setups_on_relaunch=after - before,
-               cases=len(cases))
+               cases=len(cases) + len(BODIES))
     say("smem", **rec)
     return rec
 
@@ -3417,27 +3501,12 @@ def main() -> int:
     need(all(mb_launches[k] > 0 for k in ("chain", "haar_front", "compact",
                                           "haar_tail2")),
          f"mb_vpu3 did not run its kernels: {mb_launches}")
-    check_sass(tool["sass"])
-    rates = {b: dict(tops=c["tops"], ps_per_elem_op=c["ps_per_elem_op"],
-                     ms=c["ms"], spread=c["spread"])
-             for b, c in tool["chains"].items()}
+    results["chain"] = chain_record(chain_checks, tool)
     say("rates", peak_ops_tops=peaks()[1] / 1e12, empty_ms=tool["empty_ms"],
         matmul_bf16_tflops=round(tool["matmul"]["tflops"], 3),
-        tops=json.dumps({b: round(r["tops"], 4) for b, r in rates.items()}),
+        tops=json.dumps({b: round(r["tops"], 4)
+                         for b, r in results["chain"]["rates"].items()}),
         seconds=round(time.perf_counter() - t0, 3))
-    head = chain_checks[f"slices@{CHAIN_TRIPS[-1]}"]
-    results["chain"] = dict(
-        max_abs_err=max(c["max_abs_err"] for c in chain_checks.values()),
-        ms=tool["chains"]["slices"]["ms"][CHAIN_TRIPS[-1]],
-        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None,
-        headline="slices at 16 trips",
-        per_body={k: dict(v, ms=(tool["chains"][k.split("@")[0]]["ms"]
-                                 [int(k.split("@")[1])]
-                                 if not k.startswith("empty") else None))
-                  for k, v in chain_checks.items()},
-        empty_ms=tool["empty_ms"], rates=rates, sass=tool["sass"],
-        matmul=tool["matmul"], front_sweep=tool["front"])
 
     # ---- XML cascades, the native library, the C oracle, the demo ------
     xml = check_xml(ct, stack8, vga)

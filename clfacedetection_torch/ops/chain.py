@@ -10,6 +10,12 @@ at ``x[r, c]`` and each of ``trips`` trips applies the body.  So the
 TPU grid, and the kernel (``csrc/mb_chain.cu``) computes every output.
 ``chain_plain`` is the specification and matches the kernel bit for bit
 (float32, every operation rounded on its own).
+
+The kernel's thread runs C contiguous columns of one row (a width fixed
+by body in the kernel, which its SASS names) and loads its row window
+from shared memory once a trip, 16 bytes at a time:
+``window_words(body, C)`` words, the offsets of ``OFFSETS`` rounded out
+to 16-byte groups.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 
 from .. import kernels
 
-__all__ = ["chain", "chain_plain", "BODIES", "OPS_PER_TRIP", "GH", "GW",
+__all__ = ["chain", "chain_plain", "BODIES", "OPS_PER_TRIP", "FLOAT_OPS",
+           "OFFSETS", "window_words", "GH", "GW",
            "BH", "BW", "IN_W"]
 
 GH, GW = 2272, 1280        # the JAX's grid: the 1080p front's padded canvas
@@ -75,6 +82,27 @@ BODIES = tuple(_TRIPS)
 #: the JAX's operations a trip (mb_vpu3.py bench(..., ops_per_trip))
 OPS_PER_TRIP = {"empty": 0, "slices": 33, "arith": 48, "cmpsel": 64,
                 "rect": 80}
+#: the arithmetic among them a trip (rect's 80 count its 32 slices too)
+FLOAT_OPS = {"empty": 0, "slices": 33, "arith": 48, "cmpsel": 64,
+             "rect": 48}
+#: the column offsets from an element that a trip reads
+OFFSETS = {"empty": (), "slices": tuple((i * 7 + 3) % 100 for i in range(32)),
+           "arith": (7,), "cmpsel": (3,),
+           "rect": tuple(sorted({v for i in range(16)
+                                 for v in ((i * 7 + 3) % 50,
+                                           (i * 11 + 17) % 50)}))}
+
+
+def window_words(body: str, cols: int) -> int:
+    """Words of shared memory that one trip of the kernel loads for a
+    thread of ``cols`` columns: its offsets' span, rounded out to 16-byte
+    groups (a thread's first column starts one)."""
+    off = OFFSETS[body]
+    if not off:
+        return 0
+    lo = min(off) // 4 * 4
+    hi = -(-(cols + max(off)) // 4) * 4
+    return hi - lo
 
 
 def _check(x: torch.Tensor, body: str, trips: int, gw: int) -> None:

@@ -10,7 +10,10 @@ order, through the port's kernels.
   add, the rect mix) at 4 and 16 trips over f32 [2272, 384] ->
   [2272, 1280]; the slope between the two gives ps per element and
   operation and the rate in T operations/s, with the JAX's operations a
-  trip and ``NEL = gh * gw`` elements;
+  trip and ``NEL = gh * gw`` elements, with the card's SM clock sampled
+  meanwhile; each trip loop's instructions counted in the SASS
+  (``cuobjdump -sass``), and its floors: warp instructions at 4 a clock
+  an SM, shared bytes at 128 a clock an SM;
 * the bf16 product chain: 16 products of [2048, 768] by [768, 2048]
   through ``torch.matmul`` (the JAX leaves it to XLA too);
 * the front sweep: frontalface_alt on ``photo_scene((1080, 1920))``, min
@@ -22,16 +25,21 @@ order, through the port's kernels.
 
 Times are CUDA events around back-to-back calls, repeated three times
 until the three agree within 5% (the median is printed with their
-spread).  It runs on the card unless given ``device="cpu"``, where the
-kernels' plain versions run and the times are host times of the CPU.
+spread); a chain's call is one of ``GRAPH_CALLS`` in a replayed CUDA
+graph, so that its time is the card's alone.  It runs on the card unless
+given ``device="cpu"``, where the kernels' plain versions run and the
+times are host times of the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import re
 import statistics
+import subprocess
 import sys
+import threading
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -41,12 +49,14 @@ import torch
 from .. import kernels
 from ..detect.pyramid import PyramidDetector, default_device
 from ..models import load_cascade
-from ..ops.chain import BODIES, GH, GW, IN_W, OPS_PER_TRIP, chain
+from ..ops.chain import (BODIES, FLOAT_OPS, GH, GW, IN_W, OPS_PER_TRIP,
+                         chain, window_words)
 from ..ops.compact_kernel import compact
 from ..ops.haar_front import haar_front
 from ..utils import photo_scene
 
-__all__ = ["main", "Timer", "CHAINS", "CUMN", "TRIPS", "trip_loop_counts"]
+__all__ = ["main", "Timer", "ClockSampler", "CHAINS", "CUMN", "TRIPS",
+           "trip_loop_counts", "floors", "ptxas_spills"]
 
 #: the four chains of mb_vpu3.py, its names
 CHAINS = (("slices", "lane-slice+add"), ("arith", "mul+max+mul (3ops)"),
@@ -106,12 +116,19 @@ class Timer:
 
 
 _FLOAT_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET")
+# loads that may read device memory (LD: a generic address)
+_GLOBAL_LOADS = ("LDG", "LDGSTS", "LD")
+#: an SM of the H100 issues four warp instructions a clock (one a
+#: scheduler) and serves 128 bytes of shared memory a clock
+ISSUE_PER_CLOCK = 4
+SHARED_BYTES_PER_CLOCK = 128
 # "/*0530*/  @!P0 LDS R4, [R2+0xc] ;": address, opcode, operands; a
 # branch names its target's address ("BRA 0x2f0")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
 _TARGET = re.compile(r"\b0x([0-9a-f]+)\b")
-_KERNEL = re.compile(r"Function : (\S*chain_kernelILi(\d+)E\S*)")
+# chain_kernel<body, cols>
+_KERNEL = re.compile(r"chain_kernelILi(\d+)ELi(\d+)E")
 
 
 def _functions(sass: str):
@@ -128,15 +145,28 @@ def _functions(sass: str):
         yield name, lines
 
 
+def _base(opcode: str) -> str:
+    return opcode.split(".")[0]
+
+
+def _shared_words(opcode: str) -> int:
+    """32-bit words that one lane's shared load reads: ``LDS`` 1,
+    ``LDS.64`` 2, ``LDS.128`` 4; 0 for any other instruction."""
+    if _base(opcode) != "LDS":
+        return 0
+    mods = opcode.split(".")[1:]
+    return 4 if "128" in mods else 2 if "64" in mods else 1
+
+
 def _trip_loop(lines) -> Optional[Dict[str, int]]:
-    """Opcode counts of the loop (a backward branch's span) that holds the
-    most float instructions, the smallest such on a tie; None when no loop
-    holds one."""
-    insns = [(int(m.group(1), 16), m.group(2).split(".")[0], m.group(3))
+    """Counts by opcode (modifiers kept) of the loop (a backward branch's
+    span) that holds the most float instructions, the smallest such on a
+    tie; None when no loop holds one."""
+    insns = [(int(m.group(1), 16), m.group(2), m.group(3))
              for m in map(_INSN.search, lines) if m]
     best, best_n = None, 0
     for addr, op, args in insns:
-        t = _TARGET.search(args) if op == "BRA" else None
+        t = _TARGET.search(args) if _base(op) == "BRA" else None
         if t is None or int(t.group(1), 16) > addr:
             continue
         start = int(t.group(1), 16)
@@ -144,53 +174,184 @@ def _trip_loop(lines) -> Optional[Dict[str, int]]:
         for a, o, _ in insns:
             if start <= a <= addr:
                 counts[o] = counts.get(o, 0) + 1
-        n = sum(counts.get(o, 0) for o in _FLOAT_OPS)
+        n = sum(v for o, v in counts.items() if _base(o) in _FLOAT_OPS)
         if n > best_n or (n == best_n and best is not None
                           and sum(counts.values()) < sum(best.values())):
             best, best_n = counts, n
     return best
 
 
-def trip_loop_counts(sass: str, rows: int = 8) -> Dict[str, dict]:
-    """Per chain body, from the SASS of ``chain_kernel<body>``
-    (``csrc/mb_chain.cu``): the instructions of its trip loop for one trip
-    and one element (the loop runs ``rows`` elements): shared loads
-    (``LDS``), float instructions, and every opcode."""
+def trip_loop_counts(sass: str) -> Dict[str, dict]:
+    """Per chain body, from the SASS of ``chain_kernel<body, cols>``
+    (``csrc/mb_chain.cu``; ``cols`` read from its name): its trip loop's
+    instructions for one trip.  A lane runs ``cols`` elements, so per
+    element and trip: the shared words read (a load counted by its width),
+    the float instructions, every opcode; per warp and trip: every
+    instruction (``warp_insns``, the issue floor's count) and the loads
+    that may read device memory."""
     out = {}
     for name, lines in _functions(sass):
-        m = _KERNEL.search("Function : " + name)
+        m = _KERNEL.search(name)
         if m is None:
             continue
-        body = BODIES[int(m.group(2))]
+        body, cols = BODIES[int(m.group(1))], int(m.group(2))
         counts = _trip_loop(lines) or {}
+        insns = sum(counts.values())
         out[body] = dict(
-            shared_loads=counts.get("LDS", 0) / rows,
-            float_ops=sum(counts.get(o, 0) for o in _FLOAT_OPS) / rows,
-            opcodes={k: v / rows for k, v in sorted(counts.items())},
-            jax_ops=OPS_PER_TRIP[body])
+            cols=cols,
+            shared_words=sum(_shared_words(o) * n
+                             for o, n in counts.items()) / cols,
+            float_ops=sum(n for o, n in counts.items()
+                          if _base(o) in _FLOAT_OPS) / cols,
+            warp_insns=insns, insns_per_elem=insns / cols,
+            global_loads=sum(n for o, n in counts.items()
+                             if _base(o) in _GLOBAL_LOADS),
+            opcodes={k: v / cols for k, v in sorted(counts.items())},
+            jax_ops=OPS_PER_TRIP[body], jax_float_ops=FLOAT_OPS[body],
+            window_words=window_words(body, cols))
     return out
+
+
+def floors(counts: dict, nel: int, trips: int, sms: int,
+           clock_mhz: float) -> dict:
+    """The trip loops' floors in ms for ``nel`` elements and ``trips``
+    trips, from one body's ``trip_loop_counts``: its warp instructions at
+    ``ISSUE_PER_CLOCK`` an SM, and its shared bytes at
+    ``SHARED_BYTES_PER_CLOCK`` an SM, on ``sms`` SMs at ``clock_mhz``."""
+    hz = sms * clock_mhz * 1e6
+    work = float(nel) * trips
+    return dict(issue_ms=work * counts["insns_per_elem"] / 32
+                / ISSUE_PER_CLOCK / hz * 1e3,
+                shared_ms=work * counts["shared_words"] * 4
+                / SHARED_BYTES_PER_CLOCK / hz * 1e3)
+
+
+def ptxas_spills(log: str) -> Dict[str, dict]:
+    """Per kernel that ``ptxas -v`` reported on (``kernels.build_log()``):
+    its registers and the bytes it spills (stores, loads)."""
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"([^' ]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def smi_id(dev: torch.device) -> str:
+    """The card ``dev`` as ``nvidia-smi -i`` names it: its PCI bus id
+    (``nvidia-smi`` numbers the cards in PCI order and ignores
+    ``CUDA_VISIBLE_DEVICES``, so a CUDA ordinal may name another card)."""
+    p = torch.cuda.get_device_properties(dev)
+    return f"{p.pci_domain_id:08X}:{p.pci_bus_id:02X}:{p.pci_device_id:02X}.0"
+
+
+class ClockSampler:
+    """The SM clock (``nvidia-smi``'s ``clocks.sm``, MHz) of the card that
+    ``nvidia-smi -i`` calls ``card`` (``smi_id``), read over and over from
+    a thread while the ``with`` block runs; no samples where
+    ``nvidia-smi`` is missing."""
+
+    QUERY = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"]
+
+    EVERY_S = 0.1
+
+    def __init__(self, card: str):
+        self.card = card
+        self.cmd = self.QUERY + ["-i", card]
+        self.samples: list = []
+        self.top_mhz: Optional[float] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(self.cmd, capture_output=True,
+                                     text=True, timeout=10).stdout
+                sm, top = (float(v) for v in out.strip().split(","))
+            except (OSError, ValueError, subprocess.SubprocessError):
+                return
+            self.samples.append(sm)
+            self.top_mhz = top
+            self._stop.wait(self.EVERY_S)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> dict:
+        s = sorted(self.samples)
+        return dict(card=self.card,
+                    median_mhz=statistics.median(s) if s else None,
+                    min_mhz=s[0] if s else None,
+                    max_mhz=s[-1] if s else None,
+                    clocks_max_sm_mhz=self.top_mhz, samples=len(s))
 
 
 def _say(log, name: str, text: str) -> None:
     log(f"{name:26s}: {text}")
 
 
+#: chain calls in one CUDA graph when a chain is timed on the card: its
+#: device time alone (an eager call's host time is about what a 4-trip
+#: chain takes on the card)
+GRAPH_CALLS = 10
+
+
+def _chain_ms(timer: Timer, fn: Callable) -> Tuple[float, float]:
+    """(ms per call of ``fn``, spread): on the card from the replays of a
+    CUDA graph of ``GRAPH_CALLS`` calls, on the CPU from the calls."""
+    if not timer.cuda:
+        return timer(fn)
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    ms, spread = timer(graph.replay)
+    return ms / GRAPH_CALLS, spread
+
+
 def chain_rates(x: torch.Tensor, gw: int, timer: Timer,
                 log=print) -> Dict[str, dict]:
-    """The four chains: ms at each trip count, ps/elem/op and T op/s from
-    the slope (mb_vpu3.py bench)."""
+    """The four chains: ms at each trip count, the T op/s of each by the
+    JAX's op counts, and the slope: ms a trip, ps/elem/op and T op/s
+    (mb_vpu3.py bench)."""
     nel = x.shape[0] * gw
     t0, t1 = TRIPS
     out = {}
     for body, label in CHAINS:
         ms, spread = {}, {}
         for tr in TRIPS:
-            ms[tr], spread[tr] = timer(lambda tr=tr: chain(x, body, tr, gw))
+            ms[tr], spread[tr] = _chain_ms(
+                timer, lambda tr=tr: chain(x, body, tr, gw))
         slope = (ms[t1] - ms[t0]) / ((t1 - t0) * OPS_PER_TRIP[body])
         ps = slope * 1e9 / nel
         tops = nel / max(slope, 1e-9) * 1e3 / 1e12
-        out[body] = dict(ms=ms, spread=spread, ps_per_elem_op=ps,
-                         tops=tops, ops_per_trip=OPS_PER_TRIP[body])
+        out[body] = dict(
+            ms=ms, spread=spread, ps_per_elem_op=ps, tops=tops,
+            trip_ms=(ms[t1] - ms[t0]) / (t1 - t0),
+            tops_at={tr: nel * OPS_PER_TRIP[body] * tr / ms[tr] / 1e9
+                     for tr in TRIPS},
+            ops_per_trip=OPS_PER_TRIP[body])
         _say(log, label, f"{ms} -> {ps:6.4f} ps/elem/op  ({tops:.2f} Top/s)"
              f"  spread {max(spread.values()):.3f}")
     return out
@@ -300,13 +461,36 @@ def main(device=None, gh: int = GH, gw: int = GW,
          f"{spread:.3f}")
     res = dict(device=name, gh=gh, gw=gw, nel=nel, bodies=list(BODIES),
                empty_ms=empty, empty_spread=spread)
-    res["chains"] = chain_rates(x, gw, timer, log)
+    clock = ClockSampler(smi_id(dev)) if dev.type == "cuda" else None
+    with clock or contextlib.nullcontext():
+        res["chains"] = chain_rates(x, gw, timer, log=log)
     if dev.type == "cuda":
-        res["sass"] = trip_loop_counts(kernels.sass())
-        for body, c in res["sass"].items():
-            _say(log, f"sass {body}", f"{c['shared_loads']:g} shared loads, "
-                 f"{c['float_ops']:g} float instructions a trip and element"
-                 f" (JAX ops {c['jax_ops']}); {c['opcodes']}")
+        res["clock"] = clock.summary()
+        mhz = res["clock"]["median_mhz"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _say(log, "sm clock", f"{res['clock']} ({sms} SMs)")
+        sass = kernels.sass()
+        res["sass"] = trip_loop_counts(sass)
+        for body in BODIES:
+            c = res["sass"][body]
+            _say(log, f"sass {body}", f"C = {c['cols']}: "
+                 f"{c['shared_words']:g} shared words, "
+                 f"{c['float_ops']:g} float instructions, "
+                 f"{c['insns_per_elem']:g} instructions a trip and element "
+                 f"(JAX ops {c['jax_ops']}, {c['global_loads']} global "
+                 f"loads); {c['opcodes']}")
+        res["floors"] = {
+            b: {tr: floors(k, nel, tr, sms, mhz) for tr in TRIPS}
+            for b, k in res["sass"].items() if b != "empty"} if mhz else None
+        if mhz:
+            for body, _ in CHAINS:
+                f = res["floors"][body][TRIPS[-1]]
+                _say(log, f"floors {body}", f"issue {f['issue_ms']:.4f} ms, "
+                     f"shared {f['shared_ms']:.4f} ms at {TRIPS[-1]} trips "
+                     f"and {mhz:g} MHz")
+        res["ptxas"] = {k: v for k, v in
+                        ptxas_spills(kernels.build_log()).items()
+                        if _KERNEL.search(k)}
     res["matmul"] = matmul_rate(dev, matmul, timer, rng, log)
     res["front"] = front_sweep(dev, shape, nel, timer, front_ks=front_ks,
                                log=log)

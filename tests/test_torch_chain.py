@@ -217,21 +217,27 @@ def test_tool_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         tool.main()
 
 
-SASS = """
-\t\tFunction : _ZN12_GLOBAL__N_112chain_kernelILi4EEEvPKfPfiixi
+def _sass(cols, rect_loads=("LDS R4, [R2+0xc]", "LDS R5, [R2+0x44]")):
+    """A canned ``cuobjdump -sass`` listing: rect's and empty's kernels at
+    ``cols`` columns a thread, and a kernel of another name; rect's trip
+    loop (0x10-0x80) inside its tile loop (0x10-0xa0)."""
+    loads = "".join(f"        /*00{1 + i:x}0*/                   {ld} ;\n"
+                    for i, ld in enumerate(rect_loads))
+    n = len(rect_loads)
+    at = [f"{(1 + n + i) * 16:04x}" for i in range(9)]
+    return f"""
+\t\tFunction : _ZN12_GLOBAL__N_112chain_kernelILi4ELi{cols}EEEvPKfPfiiii
         /*0000*/                   LDC R1, c[0x0][0x28] ;
-        /*0010*/                   LDS R4, [R2+0xc] ;
-        /*0020*/                   LDS R5, [R2+0x44] ;
-        /*0030*/                   FADD R6, R4, -R5 ;
-        /*0040*/                   FMUL R6, R6, 0.0099999997764825820923 ;
-        /*0050*/                   FADD R7, R7, R6 ;
-        /*0060*/                   IADD3 R0, R0, 0x1, RZ ;
-        /*0070*/                   ISETP.GE.AND P0, PT, R0, R3, PT ;
-        /*0080*/               @!P0 BRA 0x10 ;
-        /*0090*/                   STG.E [R8.64], R7 ;
-        /*00a0*/                   BRA 0x10 ;
-        /*00b0*/                   EXIT ;
-\t\tFunction : _ZN12_GLOBAL__N_112chain_kernelILi0EEEvPKfPfiixi
+{loads}        /*{at[0]}*/                   FADD R6, R4, -R5 ;
+        /*{at[1]}*/                   FMUL R6, R6, 0.0099999997764825820923 ;
+        /*{at[2]}*/                   FADD R7, R7, R6 ;
+        /*{at[3]}*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*{at[4]}*/                   ISETP.GE.AND P0, PT, R0, R3, PT ;
+        /*{at[5]}*/               @!P0 BRA 0x10 ;
+        /*{at[6]}*/                   STG.E [R8.64], R7 ;
+        /*{at[7]}*/                   BRA 0x10 ;
+        /*{at[8]}*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_112chain_kernelILi0ELi{cols}EEEvPKfPfiiii
         /*0000*/                   LDS R4, [R2] ;
         /*0010*/                   STG.E [R8.64], R4 ;
         /*0020*/                   EXIT ;
@@ -243,13 +249,117 @@ SASS = """
 
 def test_trip_loop_counts_reads_the_innermost_float_loop():
     """The SASS counter takes, per chain body, the loop that holds the most
-    float instructions (the trip loop, not the unit loop around it)."""
-    got = tool.trip_loop_counts(SASS, rows=1)
+    float instructions (the trip loop, not the tile loop around it), and
+    counts it per element of a lane's ``cols``."""
+    got = tool.trip_loop_counts(_sass(1))
     assert set(got) == {"rect", "empty"}
-    assert got["rect"]["shared_loads"] == 2
+    assert got["rect"]["cols"] == got["empty"]["cols"] == 1
+    assert got["rect"]["shared_words"] == 2
     assert got["rect"]["float_ops"] == 3
     assert got["rect"]["opcodes"]["FADD"] == 2
-    assert got["rect"]["jax_ops"] == 80
+    assert got["rect"]["jax_ops"] == 80 and got["rect"]["jax_float_ops"] == 48
+    assert got["rect"]["warp_insns"] == 8 and got["rect"]["global_loads"] == 0
     assert got["empty"]["float_ops"] == 0 and got["empty"]["opcodes"] == {}
-    halved = tool.trip_loop_counts(SASS, rows=2)["rect"]
-    assert halved["shared_loads"] == 1 and halved["float_ops"] == 1.5
+    halved = tool.trip_loop_counts(_sass(2))["rect"]
+    assert halved["cols"] == 2
+    assert halved["shared_words"] == 1 and halved["float_ops"] == 1.5
+    assert halved["insns_per_elem"] == 4 and halved["warp_insns"] == 8
+
+
+@pytest.mark.parametrize("loads,words,insns,global_loads", [
+    (("LDS R4, [R2+0xc]",), 1, 7, 0),
+    (("LDS.64 R4, [R2+0x10]",), 2, 7, 0),
+    (("LDS.128 R4, [R2+0x10]",), 4, 7, 0),
+    (("LDS.128 R4, [R2]", "LDS.128 R8, [R2+0x10]", "LDS.U8 R12, [R2+0x3]"),
+     9, 9, 0),
+    (("LDS.128 R4, [R2]", "LDG.E.128 R8, desc[UR4][R2.64]"), 4, 8, 1),
+    (("LDS.128 R4, [R2]", "LD.E R8, [R2.64]"), 4, 8, 1),
+])
+def test_trip_loop_counts_shared_words_by_width(loads, words, insns,
+                                                global_loads):
+    """A shared load counts the words it reads (``LDS.128`` 4, ``.64`` 2,
+    others 1); a load that may read device memory is counted apart."""
+    got = tool.trip_loop_counts(_sass(16, loads))["rect"]
+    assert got["shared_words"] == words / 16
+    assert got["warp_insns"] == insns and got["insns_per_elem"] == insns / 16
+    assert got["global_loads"] == global_loads
+    assert got["window_words"] == tchain.window_words("rect", 16) == 68
+
+
+@pytest.mark.parametrize("body,cols,words", [
+    ("slices", 16, 116), ("rect", 16, 68), ("arith", 16, 20),
+    ("cmpsel", 16, 20), ("empty", 16, 0), ("slices", 8, 108),
+    ("slices", 32, 132), ("rect", 32, 84), ("arith", 8, 12),
+])
+def test_window_words(body, cols, words):
+    """The 16-byte groups that cover a thread's reads in one trip: slices
+    29 loads at 16 columns, rect 17, arith and cmpsel 5."""
+    assert tchain.window_words(body, cols) == words
+
+
+class _Reads:
+    """Stands for x in a plain trip and records the first column of every
+    slice that the trip reads."""
+
+    def __init__(self, x):
+        self.x, self.starts = x, set()
+
+    def __getitem__(self, idx):
+        self.starts.add(idx[1].start)
+        return self.x[idx]
+
+
+@pytest.mark.parametrize("body", tchain.BODIES)
+def test_offsets_are_what_the_plain_trip_reads(body):
+    """OFFSETS, which sizes the kernel's windows (``window_words``) and
+    the SASS check, holds the columns that the specification's trip
+    reads."""
+    x = torch.zeros((2, tchain.IN_W))
+    reads = _Reads(x)
+    tchain._TRIPS[body][0](reads, x[:, :tchain.BW], 0)
+    assert reads.starts == set(tchain.OFFSETS[body])
+
+
+def test_floors():
+    counts = dict(insns_per_elem=35.0, shared_words=7.25)
+    f = tool.floors(counts, nel=2272 * 1280, trips=16, sms=132,
+                    clock_mhz=1980.0)
+    hz = 132 * 1980e6
+    assert f["issue_ms"] == pytest.approx(
+        2272 * 1280 * 16 * 35 / 32 / 4 / hz * 1e3)
+    assert f["shared_ms"] == pytest.approx(
+        2272 * 1280 * 16 * 7.25 * 4 / 128 / hz * 1e3)
+
+
+PTXAS = """
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112chain_kernelILi1ELi16EEEvPKfPfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112chain_kernelILi1ELi16EEEvPKfPfiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 152 registers, 5248 bytes smem, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112chain_kernelILi1ELi32EEEvPKfPfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112chain_kernelILi1ELi32EEEvPKfPfiiii
+    24 bytes stack frame, 24 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 255 registers, 7296 bytes smem, 384 bytes cmem[0]
+"""
+
+
+def test_ptxas_spills():
+    got = tool.ptxas_spills(PTXAS)
+    k16 = "_ZN12_GLOBAL__N_112chain_kernelILi1ELi16EEEvPKfPfiiii"
+    k32 = "_ZN12_GLOBAL__N_112chain_kernelILi1ELi32EEEvPKfPfiiii"
+    assert got[k16] == dict(spill_stores=0, spill_loads=0, registers=152)
+    assert got[k32] == dict(spill_stores=24, spill_loads=28, registers=255)
+
+
+def test_chain_ab_loads_another_checkout():
+    """``tools/chain_ab.py`` imports another checkout's package under a
+    name of its own, beside this one; its chain (here this checkout's own,
+    on the CPU: the plain version) gives the same result."""
+    from clfacedetection_torch.tools import chain_ab
+    other = chain_ab.load_other(_ROOT)
+    assert other.__name__ == "clfd_other.ops.chain"
+    assert other.chain is not tchain.chain
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (32, tchain.IN_W)).astype(np.float32))
+    assert torch.equal(other.chain(x, "rect", 2, 256),
+                       tchain.chain(x, "rect", 2, 256))
