@@ -1,0 +1,9 @@
+"""The share of the traced slice in which no kernel, copy or set ran on
+the card, in %."""
+
+
+def read(ctx):
+    t = ctx["trace"]
+    if not t or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
