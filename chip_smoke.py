@@ -319,28 +319,39 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# the port's counters (``clfacedetection_torch.trace``) at ``reset_counts``
+_COUNTS_AT_RESET: dict = {}
+
+
+def _since_reset(name: str):
+    from clfacedetection_torch import trace
+    return trace.counters().get(name, 0) - _COUNTS_AT_RESET.get(name, 0)
+
+
 def reset_counts(counters) -> None:
-    """Every count from 0: the kernel wrappers' and the programs'
-    replays."""
-    from clfacedetection_torch.runtime import Program
-    for c in counters.values():
-        c.launches = 0
-    Program.replays = 0
+    """Every count from 0: the port's counters are never reset, so this
+    takes the snapshot that ``read_counts`` and ``count_routes``
+    subtract."""
+    from clfacedetection_torch import trace
+    _COUNTS_AT_RESET.clear()
+    _COUNTS_AT_RESET.update(trace.counters())
 
 
 def read_counts(counters) -> dict:
     """Each kernel's launches since ``reset_counts`` that its wrapper
-    counted: eager calls and programs' warm-ups (not graph replays)."""
+    counted (``launches.<wrapper>``): eager calls and programs' warm-ups
+    (not graph replays)."""
     import torch
     torch.cuda.synchronize()
-    return {k: c.launches for k, c in counters.items()}
+    return {k: _since_reset(f"launches.{c.__name__}")
+            for k, c in counters.items()}
 
 
 def count_routes(counters) -> dict:
     """The wrappers' counts and the programs' replays since
     ``reset_counts``."""
-    from clfacedetection_torch.runtime import Program
-    return dict(wrapper=read_counts(counters), replays=Program.replays)
+    return dict(wrapper=read_counts(counters),
+                replays=_since_reset("program.replays"))
 
 
 def profiled_drive(counters, fn, what: str):
@@ -354,7 +365,6 @@ def profiled_drive(counters, fn, what: str):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from clfacedetection_torch.runtime import Program
     torch.cuda.synchronize()
     reset_counts(counters)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -376,7 +386,8 @@ def profiled_drive(counters, fn, what: str):
          f"{what}: the profiler saw fewer launches {launches} than the "
          f"wrappers counted {wrapper}")
     return out, dict(launches=launches, device_ms=device_ms, wrapper=wrapper,
-                     replays=Program.replays, device_records=len(names))
+                     replays=_since_reset("program.replays"),
+                     device_records=len(names))
 
 
 def host_ms(fn, reps: int) -> float:
@@ -2664,10 +2675,10 @@ def check_smem_setups(cases) -> dict:
     limits per device: once the eager pipeline of each (detector, frame)
     of ``cases`` and the chain kernel's five bodies ran on the current
     stream, running them again on another stream of the card, then on the
-    current stream, sets nothing up (``kernels.smem_setups()`` stays
-    put)."""
+    current stream, sets nothing up (the counter ``kernels.smem_setups``
+    stays put)."""
     import torch
-    from clfacedetection_torch import kernels
+    from clfacedetection_torch import trace
     from clfacedetection_torch.ops.chain import BODIES, IN_W, chain
     x = torch.rand((32, IN_W), device="cuda")
 
@@ -2679,7 +2690,7 @@ def check_smem_setups(cases) -> dict:
 
     run_all()
     torch.cuda.synchronize()
-    before = kernels.smem_setups()
+    before = trace.counters()["kernels.smem_setups"]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2687,7 +2698,7 @@ def check_smem_setups(cases) -> dict:
     torch.cuda.current_stream().wait_stream(side)
     run_all()
     torch.cuda.synchronize()
-    after = kernels.smem_setups()
+    after = trace.counters()["kernels.smem_setups"]
     need(before > 0 and after == before,
          f"ClfdSmem: {after - before} setups on a card already set up "
          f"({before} before)")

@@ -40,7 +40,7 @@ _EXPORTS = {
     "load_cascade": "models", "CASCADE_NAMES": "models",
 }
 _SUBMODULES = ("api", "detect", "kernels", "models", "native", "ops",
-               "parallel", "runtime", "tools", "utils")
+               "parallel", "runtime", "tools", "trace", "utils")
 
 __all__ = [
     "CascadeClassifier", "WeightedRect", "detect_objects",

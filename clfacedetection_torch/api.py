@@ -22,11 +22,13 @@ without one.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from . import trace
 from .detect.detector import (DetectionResult, ScaleCascadeDetector,
                               default_device)
 from .detect.grouping import group_rectangles_levels
@@ -35,6 +37,7 @@ from .detect.reference_impl import detect_multi_scale_reference
 from .models.spec import CascadeSpec
 from .models.zoo import load_cascade
 from .ops.integral import bgr_to_gray, bgra_to_gray
+from .trace import span
 
 __all__ = ["CascadeClassifier", "detect_objects", "WeightedRect",
            "CLOD_PRECOMPUTE_FEATURES", "CLOD_BLOCK_IMPLEMENTATION",
@@ -121,14 +124,20 @@ class CascadeClassifier:
                tuple(max_size) if max_size else None,
                tuple(sorted(knobs.items())))
         det = self._detectors.get(key)
-        if det is None:
-            cls = (PyramidDetector if mode == "scale_image"
-                   else ScaleCascadeDetector)
+        if det is not None:
+            trace.count("detector.cache_hits")
+            return det
+        cls = (PyramidDetector if mode == "scale_image"
+               else ScaleCascadeDetector)
+        t0 = time.perf_counter()
+        with span("entry.build"):
             det = cls(self.spec, shape, scale_factor=scale_factor,
                       min_size=tuple(min_size),
                       max_size=tuple(max_size) if max_size else None,
                       dtype=self.dtype, device=self.device, **knobs)
-            self._detectors[key] = det
+        trace.count("detector.built")
+        trace.count("detector.build_s", time.perf_counter() - t0)
+        self._detectors[key] = det
         return det
 
     def detect_multi_scale(self, image, scale_factor: float = 1.1,
@@ -190,6 +199,12 @@ class CascadeClassifier:
                                 min_size: Tuple[int, int] = (0, 0),
                                 max_size: Optional[Tuple[int, int]] = None,
                                 **knobs) -> DetectionResult:
+        with span("entry.detect"):
+            return self._detect_full(image, scale_factor, min_neighbors,
+                                     flags, min_size, max_size, knobs)
+
+    def _detect_full(self, image, scale_factor, min_neighbors, flags,
+                     min_size, max_size, knobs) -> DetectionResult:
         gray = _to_gray(image)
         if flags & CV_HAAR_FIND_BIGGEST_OBJECT:
             # the ROI-shrink loop is sequential host logic in the reference

@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.compile import (CompiledCascade, compile_cascade, cv_round,
                               scale_factors, scan_grid, truncate_cascade)
 from ..models.spec import CascadeSpec
@@ -56,9 +57,11 @@ from ..ops.compact_kernel import compact
 from ..ops.haar_front import variance_factor
 from ..ops.integral import integral_2d, integral_images
 from ..ops.tail_rows import _cart_votes
+from ..trace import span
 from .grouping import group_rectangles
 
-__all__ = ["DetectionResult", "ScaleCascadeDetector", "default_device"]
+__all__ = ["DetectionResult", "ScaleCascadeDetector", "default_device",
+           "grouped", "served"]
 
 # accepted windows read back per scale in one array (the JAX package's
 # scale-cascade pack, detector.py:795)
@@ -868,32 +871,38 @@ class ScaleCascadeDetector:
                 continue
             packed = self._merge(out["packed"])
             if (packed[:, 0] > self.cap).any() and self.cap < lattice:
+                trace.count("cap.regrowths")
                 self.cap = min(self.cap * 4, lattice)
                 continue
             break
+        served(1, [packed])
         overflow = bool((packed[:, 0] > self.cap).any())
         acap = (packed.shape[1] - 2) // 2
         host = None
         boxes = []
-        for k in range(self.n_scales):
-            na = int(packed[k, 1])
-            if na == 0:
-                continue
-            if na <= acap:
-                sy = packed[k, 2:2 + na]
-                sx = packed[k, 2 + acap:2 + acap + na]
-            else:
-                if host is None:
-                    full = self._frame_device(self.put(frame), self.cap,
-                                              self._canny_steps)
-                    host = [self._merge(full[n].cpu().numpy())
-                            for n in ("sy", "sx", "ok")]
-                m = host[2][k]
-                sy, sx = host[0][k][m], host[1][k][m]
-            boxes.append(np.stack([sx, sy, np.full_like(sx, self.win_w[k]),
-                                   np.full_like(sx, self.win_h[k])], axis=1))
-        cand = (np.concatenate(boxes).astype(np.int32) if boxes
-                else np.zeros((0, 4), np.int32))
+        with span("host.unpack"):
+            for k in range(self.n_scales):
+                na = int(packed[k, 1])
+                if na == 0:
+                    continue
+                if na <= acap:
+                    sy = packed[k, 2:2 + na]
+                    sx = packed[k, 2 + acap:2 + acap + na]
+                else:
+                    if host is None:
+                        trace.count("host.full_reruns")
+                        full = self._frame_device(self.put(frame), self.cap,
+                                                  self._canny_steps)
+                        host = [self._merge(full[n].cpu().numpy())
+                                for n in ("sy", "sx", "ok")]
+                    m = host[2][k]
+                    sy, sx = host[0][k][m], host[1][k][m]
+                boxes.append(np.stack([sx, sy,
+                                       np.full_like(sx, self.win_w[k]),
+                                       np.full_like(sx, self.win_h[k])],
+                                      axis=1))
+            cand = (np.concatenate(boxes).astype(np.int32) if boxes
+                    else np.zeros((0, 4), np.int32))
         return cand, overflow
 
     def find_biggest_object(self, gray, min_neighbors: int = 3,
@@ -919,6 +928,7 @@ class ScaleCascadeDetector:
         scan_roi = None
         candidates: List[Tuple[int, int, int, int]] = []
         lattice = self.max_y * self.max_x
+        counts = []     # each scale's (survivors, accepted)
 
         def run_scale(k, roi):
             # regrow the survivor cap and the accept cap rather than clamp:
@@ -929,6 +939,7 @@ class ScaleCascadeDetector:
                                self.cap, acap)[0][0]
                 grew = False
                 if int(p[0]) > self.cap and self.cap < lattice:
+                    trace.count("cap.regrowths")
                     self.cap = min(self.cap * 4, lattice)
                     grew = True
                 if int(p[1]) > acap and acap < self.cap:
@@ -936,6 +947,7 @@ class ScaleCascadeDetector:
                     grew = True
                 if not grew:
                     break
+            counts.append(p[:2])
             na = min(int(p[1]), acap)
             if not na:
                 return np.zeros((0, 4), np.int32)
@@ -978,6 +990,7 @@ class ScaleCascadeDetector:
                     min_scale = 0.6 if rough_search else 0.4
                     min_w = int(cv_round(mx[2] * min_scale))
                     min_h = int(cv_round(mx[3] * min_scale))
+        served(1, [np.asarray(counts).reshape(-1, 2)])
         boxes = np.asarray(candidates, np.int64).reshape(-1, 4)
         boxes, _ = group_rectangles(boxes, max(min_neighbors, 1), eps)
         if not len(boxes):
@@ -989,10 +1002,29 @@ class ScaleCascadeDetector:
         """Candidates and their grouping (cvHaarDetectObjectsForROC's
         tail, tempcv.cpp:1461-1472)."""
         cand, overflow = self.candidates(gray)
-        if min_neighbors != 0:
-            boxes, neigh = group_rectangles(cand, max(min_neighbors, 1),
-                                            eps=0.2)
-        else:
-            boxes, neigh = cand, np.ones(len(cand), np.int32)
-        return DetectionResult(boxes=boxes, neighbors=neigh,
-                               candidates=cand, survivor_overflow=overflow)
+        with span("host.group"):
+            if min_neighbors != 0:
+                boxes, neigh = group_rectangles(cand, max(min_neighbors, 1),
+                                                eps=0.2)
+            else:
+                boxes, neigh = cand, np.ones(len(cand), np.int32)
+            return grouped([DetectionResult(
+                boxes=boxes, neighbors=neigh, candidates=cand,
+                survivor_overflow=overflow)])[0]
+
+
+def served(frames: int, packed) -> None:
+    """Count ``frames`` frames returned to a caller, and their survivors
+    and accepted windows: columns 0 and 1 of each packed readback in
+    ``packed`` (one a cascade, or a frame's rows a scale)."""
+    trace.count("frames", frames)
+    trace.count("survivors", sum(int(p[:, 0].sum()) for p in packed))
+    trace.count("accepted", sum(int(p[:, 1].sum()) for p in packed))
+
+
+def grouped(results: List[DetectionResult]) -> List[DetectionResult]:
+    """Count the candidates and the grouped boxes of ``results``; returns
+    them."""
+    trace.count("candidates", sum(len(r.candidates) for r in results))
+    trace.count("boxes", sum(len(r.boxes) for r in results))
+    return results

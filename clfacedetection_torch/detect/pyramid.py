@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.compile import (compile_cascade, cv_round, scale_factors,
                               truncate_cascade)
 from ..models.spec import CascadeSpec
@@ -64,8 +65,9 @@ from ..ops.resize import ResizePlan, resize_bilinear_u8, resize_plan
 from ..ops.stencil import build_stencils, stencil_values
 from ..ops.tail_rows import tail_rows, tail_rows_plain
 from ..ops.tail_walk import tail_walk, tail_walk_plain
+from ..trace import span
 from .detector import (STRATEGIES, DetectionResult, _build_clf_tables,
-                       _stage_paths, default_device)
+                       _stage_paths, default_device, grouped, served)
 from .grouping import group_rectangles
 
 __all__ = ["PyramidDetector", "PyramidPlan", "default_device"]
@@ -559,21 +561,23 @@ class PyramidDetector:
         acap = (packed.shape[1] - 2) // 2
         host = None
         out = []
-        for b, p in enumerate(packed):
-            overflow = bool(p[0] > cap)
-            n_acc = int(p[1])
-            if n_acc <= acap:
-                ay, ax = p[2:2 + n_acc], p[2 + acap:2 + acap + n_acc]
-            else:
-                if host is None:
-                    dev = full()
-                    host = (dev["surv_idx"].cpu().numpy(),
-                            dev["ok"].cpu().numpy())
-                flat = host[0][b][host[1][b]]
-                ay, ax = flat // self.wv, flat % self.wv
-            cand = (self.plan.boxes_for(ay, ax) if len(ay)
-                    else np.zeros((0, 4), np.int32))
-            out.append((cand, overflow))
+        with span("host.unpack"):
+            for b, p in enumerate(packed):
+                overflow = bool(p[0] > cap)
+                n_acc = int(p[1])
+                if n_acc <= acap:
+                    ay, ax = p[2:2 + n_acc], p[2 + acap:2 + acap + n_acc]
+                else:
+                    if host is None:
+                        trace.count("host.full_reruns")
+                        dev = full()
+                        host = (dev["surv_idx"].cpu().numpy(),
+                                dev["ok"].cpu().numpy())
+                    flat = host[0][b][host[1][b]]
+                    ay, ax = flat // self.wv, flat % self.wv
+                cand = (self.plan.boxes_for(ay, ax) if len(ay)
+                        else np.zeros((0, 4), np.int32))
+                out.append((cand, overflow))
         return out
 
     def run_regrow(self, frames: torch.Tensor,
@@ -582,12 +586,14 @@ class PyramidDetector:
         the program at the current cap; the cap grows 4x and the batch
         runs again while a frame overflows it."""
         B = frames.shape[0]
-        res = self.readback(self.program(B, self.cap).run(frames), self.cap)
-        while any(o for _, o in res) and self.cap < self.n_visit:
+        while True:
+            h = self.program(B, self.cap).run(frames)
+            res = self.readback(h, self.cap)
+            if not any(o for _, o in res) or self.cap >= self.n_visit:
+                served(B, [h.host["packed"]])
+                return res
+            trace.count("cap.regrowths")
             self.cap = min(self.cap * 4, self.n_visit)
-            res = self.readback(self.program(B, self.cap).run(frames),
-                                self.cap)
-        return res
 
     # ------------------------------------------------------------------
     def candidates(self, gray) -> Tuple[np.ndarray, bool]:
@@ -619,12 +625,15 @@ class PyramidDetector:
 
         def roc():
             h = self.program(1, self.cap).run(frames)
-            return h.program.read(h)["packed_roc"][0]
+            return h.program.read(h)
 
-        pr = roc()
-        while pr[0] > self.cap and self.cap < self.n_visit:
+        out = roc()
+        while out["packed_roc"][0, 0] > self.cap and self.cap < self.n_visit:
+            trace.count("cap.regrowths")
             self.cap = min(self.cap * 4, self.n_visit)
-            pr = roc()
+            out = roc()
+        served(1, [out["packed"]])
+        pr = out["packed_roc"][0]
         overflow = bool(pr[0] > self.cap)
         acap = (len(pr) - 2) // 4
         n_roc = int(pr[1])
@@ -636,6 +645,7 @@ class PyramidDetector:
             lvl = pr[2 + 2 * acap:2 + 2 * acap + n_roc].astype(np.int32)
             wgt = pr[2 + 3 * acap:2 + 3 * acap + n_roc].astype(np.float64)
         else:
+            trace.count("host.full_reruns")
             dev = self._detect_device(self.put(frames), self.cap)
             ok = dev["ok_roc"][0].cpu().numpy()
             flat = dev["surv_idx"][0].cpu().numpy()[ok].astype(np.int64)
@@ -647,7 +657,8 @@ class PyramidDetector:
 
     def detect(self, gray, min_neighbors: int = 3) -> DetectionResult:
         cand, overflow = self.candidates(gray)
-        return finish(cand, overflow, min_neighbors)
+        with span("host.group"):
+            return grouped([finish(cand, overflow, min_neighbors)])[0]
 
     def stage_entering_counts(self, gray) -> np.ndarray:
         """The visited windows ENTERING each stage under scalar per-stage

@@ -8,8 +8,9 @@ sources and flags; ``ctypes`` loads it.  ``ptxas`` reports each kernel's
 registers and shared memory into ``<library>.log`` (``build_log()``).
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``.  Each op's wrapper counts its launches
-(``count``): a launch that runs on the card, never one that a CUDA graph
-capture only records; a graph's replays are not the wrapper's to count.
+(``count``: the counter ``launches.<wrapper>`` of ``trace``): a launch
+that runs on the card, never one that a CUDA graph capture only records;
+a graph's replays are not the wrapper's to count.
 A wrapper launches under ``on_device``: the tensor's card made current
 only where it is not already.
 
@@ -28,7 +29,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Optional
+
+from .. import trace
 
 __all__ = ["NVCC_FLAGS", "lib", "check", "count", "on_device", "smem_setups",
            "build_log", "sass"]
@@ -138,6 +142,7 @@ def lib() -> ctypes.CDLL:
     global _lib, _lib_path
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             _lib_path = _build()
             handle = ctypes.CDLL(_lib_path)
             for name, argtypes in _SIGNATURES.items():
@@ -145,6 +150,7 @@ def lib() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = handle
+            trace.count("kernels.library_s", time.perf_counter() - t0)
         return _lib
 
 
@@ -173,9 +179,9 @@ def smem_setups() -> int:
 
 
 def count(wrapper) -> None:
-    """One more launch of ``wrapper``'s kernel (its ``launches``), unless
-    the current stream is capturing a CUDA graph: the capture records the
-    launch and runs nothing."""
+    """One more launch of ``wrapper``'s kernel (the counter
+    ``launches.<wrapper's name>``), unless the current stream is capturing
+    a CUDA graph: the capture records the launch and runs nothing."""
     import torch
     if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
+        trace.count(f"launches.{wrapper.__name__}")

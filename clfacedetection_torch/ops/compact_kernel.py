@@ -113,6 +113,3 @@ def compact(flags: torch.Tensor, cap: int):
     kernels.check("clfd_compact", err)
     kernels.count(compact)
     return out, total
-
-
-compact.launches = 0

@@ -269,6 +269,3 @@ def haar_front(sum_: torch.Tensor, sq_hi: torch.Tensor, sq_lo: torch.Tensor,
     kernels.check("clfd_haar_front", err)
     kernels.count(haar_front)
     return front, vnf
-
-
-haar_front.launches = 0

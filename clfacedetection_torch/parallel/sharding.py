@@ -19,9 +19,10 @@ from typing import Dict, List
 
 import torch
 
-from ..detect.detector import DetectionResult
+from ..detect.detector import DetectionResult, grouped, served
 from ..detect.pyramid import finish
 from ..runtime.mesh import Fork, Mesh
+from ..trace import span
 
 __all__ = ["detect_sharded", "gather_detections"]
 
@@ -63,5 +64,7 @@ def gather_detections(out: Dict[str, torch.Tensor], det,
     the packed array to the host."""
     packed = out["packed"].cpu().numpy()
     cap = out["surv_idx"].shape[1]
-    return [finish(c, o, min_neighbors)
-            for c, o in det.unpack(packed, cap, lambda: out)]
+    res = det.unpack(packed, cap, lambda: out)
+    served(len(packed), [packed])
+    with span("host.group"):
+        return grouped([finish(c, o, min_neighbors) for c, o in res])

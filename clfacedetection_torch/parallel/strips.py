@@ -29,11 +29,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
+from ..detect.detector import grouped, served
 from ..detect.pyramid import PyramidDetector, finish
 from ..ops.compact_kernel import compact
 from ..ops.haar_front import front_plain, haar_front
 from ..runtime.mesh import Fork, Mesh
 from ..runtime.program import Program
+from ..trace import span
 
 __all__ = ["StripShardedPyramidDetector"]
 
@@ -166,6 +169,7 @@ class StripShardedPyramidDetector:
         out = run()
         while bool(np.any(out["n_strip"] > det.cap // k)) \
                 and det.cap < k * det.n_visit:
+            trace.count("cap.regrowths")
             det.cap = -(-min(det.cap * 4, k * det.n_visit) // k) * k
             out = run()
         cap = det.cap
@@ -174,10 +178,12 @@ class StripShardedPyramidDetector:
         # the strips again, eagerly, for the full arrays
         (cand, _), = det.unpack(out["packed"], cap,
                                 lambda: self._strips_device(frames, cap))
+        served(1, [out["packed"]])
         return cand, overflow
 
     def detect(self, gray, min_neighbors: int = 3):
         """Grouped detection (the same post-processing as the
         detector)."""
         cand, overflow = self.candidates(gray)
-        return finish(cand, overflow, min_neighbors)
+        with span("host.group"):
+            return grouped([finish(cand, overflow, min_neighbors)])[0]

@@ -37,9 +37,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..detect.detector import DetectionResult
+from .. import trace
+from ..detect.detector import DetectionResult, grouped, served
 from ..detect.pyramid import PyramidDetector, finish
 from ..models.spec import CascadeSpec
+from ..trace import span
 from .mesh import Mesh
 from .program import Handle, Program, indexed
 
@@ -116,39 +118,58 @@ def _runs_again(packed: np.ndarray, cap: int, n_visit: int) -> bool:
                 or (packed[:, 1] > acap).any())
 
 
+def _finish(res, min_neighbors: int) -> List[DetectionResult]:
+    """``finish`` of each frame's (candidates, overflow), in one
+    ``host.group`` span."""
+    with span("host.group"):
+        return grouped([finish(c, o, min_neighbors) for c, o in res])
+
+
 def _stream(det, batches, min_neighbors: int, depth: int, threaded: bool):
     """The pipelined loop of both detectors.  ``det._enqueue(frames)`` runs
     a batch and returns its handle; ``det._drain(frames, handle,
     min_neighbors)`` gives the batch's results, or None when the batch
     must run again through ``det.detect`` on this thread."""
+    def drain(j, frames, ran):
+        with span("stream.drain", j):
+            return det._drain(frames, ran, min_neighbors)
+
     def take(frames, res):
-        return det.detect(frames, min_neighbors) if res is None else res
+        if res is not None:
+            return res
+        trace.count("stream.reruns")
+        with span("stream.rerun"):
+            return det.detect(frames, min_neighbors)
+
+    def enqueue(frames):
+        with span("stream.enqueue"):
+            return det._enqueue(frames)
 
     q = deque()
     if not threaded:
-        for frames in batches:
-            q.append((frames, det._enqueue(frames)))
-            if len(q) >= depth:
-                frames, ran = q.popleft()
-                yield take(frames, det._drain(frames, ran, min_neighbors))
-        while q:
-            frames, ran = q.popleft()
-            yield take(frames, det._drain(frames, ran, min_neighbors))
-        return
-    ex = ThreadPoolExecutor(1)   # ONE worker: the drains stay ordered
+        def wait(j, frames, ran):
+            with span("stream.wait"):
+                return drain(j, frames, ran)
+    else:
+        ex = ThreadPoolExecutor(1)   # ONE worker: the drains stay ordered
+
+        def wait(j, frames, fut):
+            with span("stream.wait"):
+                return fut.result()
     try:
-        for frames in batches:
-            ran = det._enqueue(frames)
-            q.append((frames, ex.submit(det._drain, frames, ran,
-                                        min_neighbors)))
+        for j, frames in enumerate(batches):
+            ran = enqueue(frames)
+            q.append((j, frames, ex.submit(drain, j, frames, ran)
+                      if threaded else ran))
             if len(q) >= depth:
-                frames, fut = q.popleft()
-                yield take(frames, fut.result())
+                j0, frames, ran = q.popleft()
+                yield take(frames, wait(j0, frames, ran))
         while q:
-            frames, fut = q.popleft()
-            yield take(frames, fut.result())
+            j0, frames, ran = q.popleft()
+            yield take(frames, wait(j0, frames, ran))
     finally:
-        ex.shutdown(wait=True)
+        if threaded:
+            ex.shutdown(wait=True)
 
 
 class BatchedPyramidDetector:
@@ -206,16 +227,19 @@ class BatchedPyramidDetector:
             while True:
                 h = self.run_device(frames)
                 cap = _key(h)[1]
+                packed = _read(h, "packed")
                 # the full arrays, for a frame that accepted more windows
                 # than the packed array holds: the batch again, eagerly,
                 # on the home device
-                res = det.unpack(_read(h, "packed"), cap,
+                res = det.unpack(packed, cap,
                                  lambda: det._detect_device(det.put(frames),
                                                             cap))
                 if not any(o for _, o in res) or det.cap >= det.n_visit:
                     break
+                trace.count("cap.regrowths")
                 det.cap = min(det.cap * 4, det.n_visit)
-        return [finish(c, o, min_neighbors) for c, o in res]
+            served(len(frames), [packed])
+        return _finish(res, min_neighbors)
 
     def detect_stream(self, batches, min_neighbors: int = 3,
                       depth: int = 2, threaded: bool = True):
@@ -236,8 +260,9 @@ class BatchedPyramidDetector:
         packed = _read(h, "packed")
         if _runs_again(packed, cap, self.det.n_visit):
             return None
-        return [finish(c, o, min_neighbors)
-                for c, o in self.det.unpack(packed, cap, None)]
+        res = self.det.unpack(packed, cap, None)
+        served(len(packed), [packed])
+        return _finish(res, min_neighbors)
 
 
 class MultiCascadeBatchedDetector:
@@ -367,6 +392,7 @@ class MultiCascadeBatchedDetector:
                 det = self.subs[k]
                 if (packed[j][:, 0] > det.cap).any() \
                         and det.cap < det.n_visit:
+                    trace.count("cap.regrowths")
                     det.cap = min(det.cap * 4, det.n_visit)
                     grew = True
             if not grew:
@@ -382,8 +408,9 @@ class MultiCascadeBatchedDetector:
             def full(d=det, c=cap):
                 return d._detect_device(d.put(frames), c)
 
-            results[k] = [finish(c, o, min_neighbors) for c, o in
-                          det.unpack(packed[j], cap, full)]
+            results[k] = _finish(det.unpack(packed[j], cap, full),
+                                 min_neighbors)
+        served(len(frames), packed)
         return results
 
     def detect_stream(self, batches, min_neighbors: int = 3,

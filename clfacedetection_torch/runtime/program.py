@@ -33,8 +33,12 @@ enqueue thread captures.
 The kernel wrappers count the launches that run on the card: the
 warm-up's, not the capture's (which runs nothing).  A replay launches
 the graph's kernels without a wrapper call, so the programs count their
-replays (``Program.replays``); what a replay ran on the card is for a
-profiler to read.
+replays (the counter ``program.replays`` of ``trace``); what a replay
+ran on the card is for a profiler to read.  The programs also count
+their captures, the seconds of each capture's warm-up, capture and
+instantiation, the waits for a staging buffer and the slots made beyond
+the first two; and their spans time the load, the replay, the read and
+its wait, and the capture.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from .. import kernels, trace
+from ..trace import span
 
 __all__ = ["Handle", "Program", "indexed", "program_stream"]
 
@@ -119,8 +126,6 @@ class Program:
     host reads; ``key`` is the caller's (e.g. the batch size and cap);
     ``slot`` the mesh position whose stream it runs on."""
 
-    replays = 0
-
     def __init__(self, fn: Callable[[torch.Tensor], dict],
                  shape: Sequence[int], device, graph: bool,
                  readback: Sequence[str] = ("packed",), key=None,
@@ -147,16 +152,20 @@ class Program:
                                    pin_memory=True) for _ in range(_DEPTH)]
         self._stage_ev = [None] * _DEPTH
         self._next = 0
-        self._capture()
+        with span("program.capture"):
+            self._capture()
         self._slots = [_Slot(self.static) for _ in range(_DEPTH)]
 
     # --------------------------------------------------------- capture
     def _capture(self) -> None:
         s = self.stream
+        kernels.lib()   # built or loaded before the warm-up's clock starts
+        tw = time.perf_counter()
         s.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(s):
             self.fn(self.input)                 # warm-up: the lazy caches
         s.synchronize()
+        warmup_s = time.perf_counter() - tw
         # keep_graph: the capture and the instantiation timed apart
         g = torch.cuda.CUDAGraph(keep_graph=True)
         # no automatic collection during the capture: a dead cycle (a
@@ -176,6 +185,10 @@ class Program:
         g.instantiate()
         self.instantiate_s = time.perf_counter() - t1
         self.capture_s = t1 - t0
+        trace.count("program.captures")
+        trace.count("program.warmup_s", warmup_s)
+        trace.count("program.capture_s", self.capture_s)
+        trace.count("program.instantiate_s", self.instantiate_s)
         self.graph = g
         self.outputs = out
         self.info = _info(out)
@@ -200,16 +213,19 @@ class Program:
             raise RuntimeError("the program was released")
         s = self.stream
         with torch.cuda.stream(s):
-            self._load(frames)
-            self.graph.replay()
-            slot = next((sl for sl in self._slots if sl.free()), None)
-            if slot is None:
-                slot = _Slot(self.static)
-                self._slots.append(slot)
-            for k, t in self.static.items():
-                slot.host[k].copy_(t, non_blocking=True)
-            slot.event.record(s)
-        Program.replays += 1
+            with span("program.load"):
+                self._load(frames)
+            with span("program.replay"):
+                self.graph.replay()
+                slot = next((sl for sl in self._slots if sl.free()), None)
+                if slot is None:
+                    slot = _Slot(self.static)
+                    self._slots.append(slot)
+                    trace.count("program.slots_grown")
+                for k, t in self.static.items():
+                    slot.host[k].copy_(t, non_blocking=True)
+                slot.event.record(s)
+        trace.count("program.replays")
         h = Handle(self, frames, self.info, slot=slot)
         slot.owner = weakref.ref(h)
         return h
@@ -228,10 +244,13 @@ class Program:
             return
         i = self._next
         self._next = (i + 1) % len(self._stage)
-        if self._stage_ev[i] is not None:
-            self._stage_ev[i].synchronize()     # its last copy is done
-        else:
+        ev = self._stage_ev[i]
+        if ev is None:
             self._stage_ev[i] = torch.cuda.Event()
+        elif not ev.query():                    # its last copy is not done
+            trace.count("program.stage_waits")
+            with span("program.stage_wait"):
+                ev.synchronize()
         self._stage[i].copy_(t)
         self.input.copy_(self._stage[i], non_blocking=True)
         self._stage_ev[i].record(self.stream)
@@ -240,16 +259,19 @@ class Program:
         """The ``readback`` outputs of a run, as numpy (waits for them)."""
         if handle.host is not None:
             return handle.host
-        if handle.slot is None:
-            host = {k: handle.outputs[k].cpu().numpy() for k in self.names}
-        else:
-            slot = handle.slot
-            if slot.owner is None or slot.owner() is not handle:
-                raise RuntimeError("the handle's slot was reused")
-            slot.event.synchronize()
-            host = {k: t.numpy().copy() for k, t in slot.host.items()}
-            slot.owner = None
-            handle.slot = None
+        with span("program.read"):
+            if handle.slot is None:
+                host = {k: handle.outputs[k].cpu().numpy()
+                        for k in self.names}
+            else:
+                slot = handle.slot
+                if slot.owner is None or slot.owner() is not handle:
+                    raise RuntimeError("the handle's slot was reused")
+                with span("program.wait"):
+                    slot.event.synchronize()
+                host = {k: t.numpy().copy() for k, t in slot.host.items()}
+                slot.owner = None
+                handle.slot = None
         handle.host = host
         return host
 

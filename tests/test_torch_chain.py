@@ -23,6 +23,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from clfacedetection_torch import trace
 from clfacedetection_torch.ops import chain as tchain
 from clfacedetection_torch.tools import mb_vpu3 as tool
 
@@ -152,9 +153,9 @@ def test_chain_plain_bit_equal_to_jax(body, trips):
 def test_chain_on_cpu_runs_the_plain_version():
     x = torch.from_numpy(np.random.default_rng(1).random(
         (32, tchain.IN_W)).astype(np.float32))
-    before = tchain.chain.launches
+    before = trace.counters().get("launches.chain", 0)
     got = tchain.chain(x, "rect", 3, 256)
-    assert tchain.chain.launches == before
+    assert trace.counters().get("launches.chain", 0) == before
     assert torch.equal(got, tchain.chain_plain(x, "rect", 3, 256))
     assert torch.equal(tchain.chain(x, "slices", 0, 512),
                        x[:, :BW].repeat(1, 2))
@@ -192,12 +193,12 @@ def test_kernel_constants_are_numpy_float32():
 
 def test_tool_runs_every_section_on_cpu():
     lines = []
-    before = tchain.chain.launches
+    before = trace.counters().get("launches.chain", 0)
     res = tool.main(device="cpu", gh=32, gw=256, shape=(60, 80),
                     matmul=(32, 16, 32), front_ks=(1, 2),
                     timer=tool.Timer(torch.device("cpu"), 0.0, tries=1),
                     log=lines.append)
-    assert tchain.chain.launches == before
+    assert trace.counters().get("launches.chain", 0) == before
     text = "\n".join(lines)
     for what in ["device: cpu", "empty sweep", "lane-slice+add",
                  "mul+max+mul", "mul+cmp+sel+add", "2slice+sub+mul+add",

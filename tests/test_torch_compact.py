@@ -11,6 +11,7 @@ import torch
 
 from clfacedetection_tpu.detect.pyramid import _compact, _compact_hier
 
+from clfacedetection_torch import trace
 from clfacedetection_torch.ops import compact_kernel as tcompact
 
 # The suite runs in several worker processes at once; one torch thread
@@ -33,9 +34,10 @@ def _flags(rate, seed, n=N):
 @pytest.mark.parametrize("cap", [1, 64, 700, N])
 def test_compact_equals_jax(rate, cap):
     flags = np.stack([_flags(rate, 11), _flags(rate, 12)])
-    launches = tcompact.compact.launches
+    launches = trace.counters().get("launches.compact", 0)
     idx, n = tcompact.compact(torch.from_numpy(flags), cap)
-    assert tcompact.compact.launches == launches        # CPU: plain twin
+    # CPU: plain twin
+    assert trace.counters().get("launches.compact", 0) == launches
     assert idx.dtype == n.dtype == torch.int32
     assert idx.shape == (2, cap)
     jc = jax.jit(_compact, static_argnums=1)

@@ -20,8 +20,9 @@ from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_face, synth_scene
 
 import clfacedetection_torch as ct
+from clfacedetection_torch import trace
 from clfacedetection_torch.detect import pyramid as tpyramid
-from clfacedetection_torch.ops import haar_tail, stencil, tail_rows
+from clfacedetection_torch.ops import haar_tail, stencil
 
 # The suite runs in several worker processes at once; one torch thread
 # each keeps them from oversubscribing the cores.
@@ -97,10 +98,11 @@ def test_direct_with_jax(name, max_stages, dtype):
     jd = JDet(j_load_cascade(name), SHAPE, max_stages=max_stages,
               front_stages=2, strategy="direct", dtype=getattr(jnp, dtype))
     assert not td.use_tail2 and td.front_k == jd.front_k
-    launches = tail_rows.tail_rows.launches
+    launches = trace.counters().get("launches.tail_rows", 0)
     tres, jres = td.detect(face, min_neighbors=1), \
         jd.detect(face, min_neighbors=1)
-    assert tail_rows.tail_rows.launches == launches    # CPU: plain twins
+    # CPU: plain twins
+    assert trace.counters().get("launches.tail_rows", 0) == launches
     ts, js = _set(tres.candidates), _set(jres.candidates)
     assert len(js) > 0 and not tres.survivor_overflow
     if dtype == "float64":

@@ -23,6 +23,7 @@ from clfacedetection_tpu.detect.pyramid import PyramidDetector as JDet
 from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_scene
 
+from clfacedetection_torch import trace
 from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
 from clfacedetection_torch.models import load_cascade as t_load_cascade
 from clfacedetection_torch.models.zoo import artifact_dir
@@ -74,10 +75,11 @@ def test_front_f32_bit_equal(name, shape, front_k):
     frame = _scene(shape)
     jf, ii = _run(jd, td, frame)
     s, hi, lo, tilted = ii
-    launches = tfront.haar_front.launches
+    launches = trace.counters().get("launches.haar_front", 0)
     front, vnf = tfront.haar_front(s, hi, lo, td._visit, td.table,
                                    td.front_k, tilted=tilted)
-    assert tfront.haar_front.launches == launches   # CPU: plain twin
+    # CPU: plain twin
+    assert trace.counters().get("launches.haar_front", 0) == launches
     jfront = np.asarray(jf["front"])
     assert jfront.sum() > 0
     np.testing.assert_array_equal(front.reshape(-1).numpy(), jfront)

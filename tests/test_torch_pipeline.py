@@ -21,6 +21,7 @@ from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_face, synth_scene
 
 import clfacedetection_torch as ct
+from clfacedetection_torch import trace
 from clfacedetection_torch.detect import pyramid as tpyramid
 from clfacedetection_torch.ops import (compact_kernel, haar_front, haar_tail,
                                        haar_tail2)
@@ -68,7 +69,8 @@ def _iou(a, b):
 
 
 def _launch_counts():
-    return [f.launches for f in LAUNCHES]
+    counts = trace.counters()
+    return [counts.get(f"launches.{f.__name__}", 0) for f in LAUNCHES]
 
 
 def test_f64_box_for_box_with_jax_and_oracle(face):

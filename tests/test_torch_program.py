@@ -27,6 +27,7 @@ from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_face
 
 import clfacedetection_torch as ct
+from clfacedetection_torch import trace
 from clfacedetection_torch.detect.detector import ACCEPT_CAP
 from clfacedetection_torch.ops.canny import canny, canny_np
 from clfacedetection_torch.runtime import Program
@@ -58,14 +59,15 @@ def test_cpu_program_is_the_eager_function(name, knobs):
     assert isinstance(prog, Program) and not prog.graphed
     assert prog.names == (("packed", "packed_roc") if det.output_levels
                           else ("packed",))
-    before = Program.replays
+    before = trace.counters().get("program.replays", 0)
     h = prog.run(frames)
     got = prog.read(h)
     assert prog.read(h) is got                  # read once, kept
     want = det._detect_device(det.put(frames), det.cap)
     for k in prog.names:
         np.testing.assert_array_equal(got[k], want[k].numpy())
-    assert Program.replays == before            # no graph on the CPU
+    # no graph on the CPU
+    assert trace.counters().get("program.replays", 0) == before
     assert int(got["packed"][:, 1].sum()) > 0
     # the entry point reads the same packed array
     cand, _ = det.readback(h, det.cap)[0]

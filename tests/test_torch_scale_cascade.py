@@ -27,6 +27,7 @@ from clfacedetection_tpu.detect.grouping import \
 from clfacedetection_tpu.models import load_cascade as j_load_cascade
 
 import clfacedetection_torch as ct
+from clfacedetection_torch import trace
 from clfacedetection_torch.detect import detector as tdetector
 from clfacedetection_torch.ops import compact_kernel
 from clfacedetection_torch.ops.haar_front import variance_factor
@@ -79,9 +80,10 @@ def _iou(a, b):
                  marks=pytest.mark.slow),           # stage tree
 ])
 def test_f64_candidates_box_for_box_with_jax(name, max_stages):
-    before = compact_kernel.compact.launches
+    before = trace.counters().get("launches.compact", 0)
     tc, tov = _port(name, max_stages).candidates(_image())
-    assert compact_kernel.compact.launches == before   # no kernel on CPU
+    # no kernel on CPU
+    assert trace.counters().get("launches.compact", 0) == before
     jc, jov = _jax_candidates(name, max_stages)
     assert not tov and not jov and len(tc) > 0
     np.testing.assert_array_equal(tc, jc)      # same boxes, same order

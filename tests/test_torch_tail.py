@@ -42,7 +42,7 @@ from clfacedetection_tpu.models import compile as jcompile
 from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_scene
 
-from clfacedetection_torch import kernels
+from clfacedetection_torch import kernels, trace
 from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
 from clfacedetection_torch.models import load_cascade as t_load_cascade
 from clfacedetection_torch.ops import cascade_table as ctab
@@ -192,10 +192,11 @@ def test_tail_values_and_decisions_against_jax(name, max_stages, front):
     assert td.front_k == jd.front_k and not td.use_tail2
     ii = td._prep_planes(torch.from_numpy(frame)[None])
     surv_t = torch.from_numpy(surv.astype(np.int32))[None]
-    launches = ttail.haar_tail.launches
+    launches = trace.counters().get("launches.haar_tail", 0)
     vals = ttail.haar_tail(ii.sum, ii.tilted, surv_t, td.hv, td.wv,
                            td.table)[0]
-    assert ttail.haar_tail.launches == launches        # CPU: plain twin
+    # CPU: plain twin
+    assert trace.counters().get("launches.haar_tail", 0) == launches
     nn = td.table.n_clf * td.table.T
     assert vals.shape == (jd.cap, nn) and vals.dtype == torch.float32
     assert not vals[n:].any()                          # pad slots are 0
@@ -212,10 +213,11 @@ def test_tail_values_and_decisions_against_jax(name, max_stages, front):
 
     svnf = torch.from_numpy(np.asarray(f["vnf"]).reshape(-1)[
         np.where(surv < td.hv * td.wv, surv, 0)])[None]
-    launches = trows.tail_rows.launches
+    launches = trace.counters().get("launches.tail_rows", 0)
     rows = tail_rows(vals[None], svnf, surv_t, td.hv * td.wv, td.table,
                      td.front_k, td.paths if td.is_tree else None)[0]
-    assert trows.tail_rows.launches == launches        # CPU: plain twin
+    # CPU: plain twin
+    assert trace.counters().get("launches.tail_rows", 0) == launches
     alive = rows[:n, 1].numpy() > 0
     ok = np.asarray(jt["ok"])[:n]
     union = (alive | ok).sum()

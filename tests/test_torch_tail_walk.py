@@ -34,6 +34,7 @@ from clfacedetection_tpu.detect.pyramid import PyramidDetector as JDet
 from clfacedetection_tpu.models import load_cascade as j_load_cascade
 from clfacedetection_tpu.utils import synth_scene
 
+from clfacedetection_torch import trace
 from clfacedetection_torch.detect import pyramid as tpyramid
 from clfacedetection_torch.detect.pyramid import PyramidDetector as TDet
 from clfacedetection_torch.models import load_cascade as t_load_cascade
@@ -244,10 +245,11 @@ def test_walk_rejects_bad_inputs():
     td = _det("haarcascade_eye_tree_eyeglasses", None, 3)
     ii, st, svnf = _inputs(td)
     args = (td.hv, td.wv, td.table, td.front_k)
-    launches = tail_walk.launches
+    launches = trace.counters().get("launches.tail_walk", 0)
     _same_bits(tail_walk(ii.sum, ii.tilted, svnf, st, *args),
                _walk(td, ii, st, svnf))
-    assert tail_walk.launches == launches          # CPU: the plain twin
+    # CPU: the plain twin
+    assert trace.counters().get("launches.tail_walk", 0) == launches
     with pytest.raises(ValueError, match="tilted"):
         tail_walk(ii.sum, None, svnf, st, *args)
     with pytest.raises(ValueError, match="int32"):
