@@ -70,8 +70,10 @@ points and times kernels and paths with CUDA events:
   ``photo_scene``.
 
 tail2 is held bit-equal at batch 1 and 8, on ``photo_scene``, with every
-slot padding, at a cap that is no multiple of its 16-slot chunk, with an
-overflowing compaction, and replayed from a CUDA graph; the v1 tail with
+slot padding, at a cap that is no multiple of its chunk (16 slots at cap
+20,480), with an overflowing compaction, replayed from a CUDA graph, and
+in the benchmark's regime (8 1080p ``photo_scene`` frames at
+``front_stages`` 4 and cap 1,048,576, 72% padding, timed a frame); the v1 tail with
 every slot padding, at a cap that is no multiple of 32 and at batch 8
 (frontalface_alt2 and eye_tree_eyeglasses).  Both are timed at batch 1
 and per frame at batch 8, with CUDA events around back-to-back calls and
@@ -1364,12 +1366,59 @@ def tail2_case(det, s, vnf, surv, what) -> None:
          f"tail2 ({what}) differs from its plain version")
 
 
+def check_tail2_stream(spec) -> dict:
+    """tail2 in the benchmark's regime: a batch of 8 1080p ``photo_scene``
+    frames (three pasted faces each, their sizes and places apart) at
+    ``front_stages`` 4, each frame's survivors in a cap of 1,048,576 slots
+    (about 72% padding).  Bit-equal to its plain version (run over the
+    slots 16,384 at a time), timed with CUDA events and from a replayed
+    graph, a frame beside the batch-1 ``synth_scene`` case, with its
+    bound from the run's exit stages."""
+    import numpy as np
+    import torch
+    import clfacedetection_torch as ct
+    from clfacedetection_torch.ops.compact_kernel import compact
+    from clfacedetection_torch.ops.haar_front import haar_front
+    from clfacedetection_torch.ops.haar_tail2 import haar_tail2, tail2_plain
+    from clfacedetection_torch.utils import photo_scene
+    cap, B = 1 << 20, BATCH
+    det = ct.PyramidDetector(spec, SHAPE, device="cuda", scale_factor=1.1,
+                             min_size=(40, 40), front_stages=4, cap=cap)
+    frames = np.stack([photo_scene(SHAPE, (60 + 20 * i, 100 + 10 * i,
+                                           140 + 8 * i), seed=i + 1)
+                       for i in range(B)])
+    ii = det._prep_planes(det.put(frames))
+    fk, vk = haar_front(ii.sum, ii.sq_hi, ii.sq_lo, det._visit, det.table,
+                        det.front_k)
+    surv, n = compact(fk.reshape(B, -1), cap)
+    need(int(n.max()) <= cap, "the stream regime overflows its cap")
+    args = (ii.sum, vk, surv, det.table, det.front_k)
+    rows = haar_tail2(*args)
+    step = 1 << 14
+    plain = torch.cat([tail2_plain(ii.sum, vk, surv[:, i:i + step]
+                                   .contiguous(), det.table, det.front_k)
+                       for i in range(0, cap, step)], dim=1)
+    need(bits_equal(rows, plain),
+         "tail2 (batch 8, cap 1,048,576) differs from its plain version")
+    ms = timed(lambda: haar_tail2(*args), 10)
+    gms = graph_ms(lambda: haar_tail2(*args), 5)
+    out = dict(frames=B, front_k=det.front_k, cap=cap,
+               survivors=n.tolist(),
+               padding=round(1.0 - float(n.sum()) / (B * cap), 4),
+               equal_to_plain=True, ms=ms, graph_ms=gms,
+               ms_per_frame=ms / B, graph_ms_per_frame=gms / B,
+               **tail2_bound(det.table, plain, surv, det.hv, det.wv,
+                             *ii.sum.shape[1:], det.front_k))
+    say("kernel", name="haar_tail2", regime="stream_b8_cap1048576", **out)
+    return out
+
+
 def check_tail2_cases(det, targs, rows, ii8, fk8, vk8) -> dict:
     """tail2 bit-equal to its plain version beyond the main path's call:
     at batch 8 (``synth_scene``), every slot padding, a cap that is no
-    multiple of the kernel's 16-slot chunk, an overflowing compaction (a
-    true count above the cap: every slot live), and replayed from a CUDA graph; the batch-8
-    times per frame."""
+    multiple of the kernel's chunk (16 slots here), an overflowing
+    compaction (a true count above the cap: every slot live), and replayed
+    from a CUDA graph; the batch-8 times per frame."""
     import torch
     from clfacedetection_torch.ops.compact_kernel import compact
     from clfacedetection_torch.ops.haar_tail2 import haar_tail2
@@ -3247,6 +3296,7 @@ def main() -> int:
         survivors=int(pn[0]), equal_to_plain=True,
         ms=results["haar_tail2"]["photo_ms"],
         graph_ms=results["haar_tail2"]["photo_graph_ms"])
+    results["haar_tail2"]["stream"] = check_tail2_stream(spec)
     del pii, pmask, pvnf, psurv
     say("photo_scene", shape=f"{SHAPE[0]}x{SHAPE[1]}", front_k=det.front_k,
         survivors=photo_surv, jax_survivors=JAX_PHOTO_SURVIVORS,

@@ -54,7 +54,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "clfd_haar_front": [_P] * 8 + [_I] * 15 + [_F, _P],
     "clfd_compact": [_P] * 4 + [_I] * 5 + [_P],
-    "clfd_haar_tail2": [_P] * 5 + [_I] * 11 + [_P],
+    "clfd_haar_tail2": [_P] * 5 + [_I] * 8 + [_P],
     "clfd_haar_tail": [_P] * 5 + [_I] * 9 + [_P],
     "clfd_tail_rows": [_P] * 6 + [_I] * 9 + [_P],
     "clfd_tail_walk": [_P] * 8 + [_I] * 14 + [_P],
@@ -178,10 +178,13 @@ def smem_setups() -> int:
     return int(lib().clfd_smem_setups())
 
 
-def count(wrapper) -> None:
+def count(wrapper, more: Optional[dict] = None) -> None:
     """One more launch of ``wrapper``'s kernel (the counter
-    ``launches.<wrapper's name>``), unless the current stream is capturing
-    a CUDA graph: the capture records the launch and runs nothing."""
+    ``launches.<wrapper's name>``), and ``more``'s amounts added to its
+    counters, unless the current stream is capturing a CUDA graph: the
+    capture records the launch and runs nothing."""
     import torch
     if not torch.cuda.is_current_stream_capturing():
         trace.count(f"launches.{wrapper.__name__}")
+        for name, n in (more or {}).items():
+            trace.count(name, n)

@@ -209,8 +209,9 @@ def _setup(key, frame):
 
 def test_tail2_padding_interleaved_in_compaction_order():
     """Padding slots between live ones (ascending survivors, a pad after
-    every second) and a cap that is no multiple of the kernel's 16-slot
-    chunk."""
+    every second) and a cap that is no multiple of the kernel's chunk
+    (``csrc/haar_tail2.cu`` takes 16 to 512 slots a block by batch x cap:
+    16 at a cap this small), as the strips path lays them out."""
     key = ("haarcascade_frontalface_alt", 4)
     frame = synth_scene((120, 160), faces=((60, 80, 40.0),), seed=9)
     f, live, td, s = _setup(key, frame)
@@ -274,3 +275,118 @@ def test_tail2_survivors_that_pass_all_and_die_first():
                  td.n_stages)
     assert (rows[0::2, 2] == td.n_stages).float().mean() >= 0.995
     assert (rows[1::2, 2] == td.front_k).float().mean() >= 0.995
+
+
+def _jax_full_front(name, n_stages, shape=(120, 160), cap=8192):
+    """A JAX detector cut to ``n_stages`` whose front runs every stage
+    (``front_k == n_stages``), with its jitted front, compaction and XLA
+    tail, and the port's detector on the same cut."""
+    jd = JDet(j_load_cascade(name), shape, front_stages=n_stages,
+              max_stages=n_stages, dtype=jnp.float32,
+              use_pallas_front=False, cap=cap)
+    td = TDet(t_load_cascade(name), shape, front_stages=n_stages,
+              max_stages=n_stages, device="cpu")
+    assert td.front_k == jd.front_k == td.n_stages == n_stages
+    return (jd, td, jax.jit(jd._front_device), jax.jit(jd._compact_device),
+            jax.jit(jd._tail_device_xla))
+
+
+def _kernel_equals_plain(s, vnf, surv, table, front_k, rows):
+    """Where a card is present, the kernel on it gives ``rows`` (the plain
+    twin's, on the CPU) bit for bit."""
+    if not torch.cuda.is_available():
+        return
+    dev = torch.device("cuda")
+    got = ttail.haar_tail2(s.to(dev), vnf.to(dev), surv.to(dev), table,
+                           front_k).cpu()
+    assert torch.equal(got.view(torch.int32), rows.view(torch.int32))
+
+
+LAYOUTS = ["pad_run_then_live", "padding_row", "ragged_cap",
+           "front_k_is_n_stages", "every_tail_stage", "descending",
+           "each_window_twice"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_tail2_wide_chunk_layouts(layout):
+    """Slot layouts that blocks of many slots meet (``csrc/haar_tail2.cu``:
+    16 to 512 slots a block, its windows listed from wherever they sit):
+    a run of padding longer than the largest chunk before the survivors; a
+    batch row of padding only beside a full one; a cap that is no
+    multiple of 16 or 512; ``front_k == n_stages``, where no stage is left
+    and every window passes with a stage sum of 0; survivors exiting at
+    every tail stage and passing all of them, interleaved; the survivors
+    in descending order; and each survivor in two slots, both of which get
+    its row.  The plain twin against the JAX XLA tail, and the kernel
+    against it where a card is present."""
+    name = "haarcascade_frontalface_alt"
+    frame = synth_face((120, 160))
+    if layout == "front_k_is_n_stages":
+        jd, td, front, compact, tail = _jax_full_front(name, 6)
+        f = front(jnp.asarray(frame))
+        surv_j, n_surv = compact(f["front"])
+        n = int(n_surv)
+        assert 0 < n <= jd.cap
+        jt = tail(f["planes"], f["vnf"], surv_j, n_surv)
+        surv = np.asarray(surv_j).astype(np.int32)[None]
+        s = td._prep_planes(torch.from_numpy(frame)[None]).sum
+        vnf = torch.from_numpy(np.array(f["vnf"]))[None]
+        rows = ttail.haar_tail2(s, vnf, torch.from_numpy(surv), td.table,
+                                td.front_k)
+        r = rows[0].numpy()
+        np.testing.assert_array_equal(r[:, 1] > 0, np.asarray(jt["ok"]))
+        assert (r[:n, 1] == 1).all() and (r[:, 2] == td.n_stages).all()
+        assert not r[:, 3].any()
+        np.testing.assert_array_equal(
+            r[:n, 0], np.asarray(f["vnf"]).reshape(-1)[surv[0, :n]])
+        assert not r[n:, 0].any()
+        _kernel_equals_plain(s, vnf, torch.from_numpy(surv), td.table,
+                             td.front_k, rows)
+        return
+
+    key = (name, 4)
+    f, live, td, s = _setup(key, frame)
+    n_flat = td.hv * td.wv
+    vnf = torch.from_numpy(np.array(f["vnf"]))[None]
+    if layout == "pad_run_then_live":
+        surv = np.concatenate([np.full(600, n_flat, np.int32), live])[None]
+    elif layout == "padding_row":
+        cap = len(live) + 40
+        surv = np.full((2, cap), n_flat, np.int32)
+        surv[0, :len(live)] = live
+        s, vnf = torch.cat([s, s]), torch.cat([vnf, vnf])
+    elif layout == "ragged_cap":
+        cap = -(-len(live) // 512) * 512 + 21
+        assert cap % 16 and cap % 512
+        surv = np.full((1, cap), n_flat, np.int32)
+        surv[0, :len(live)] = live
+    elif layout == "descending":
+        surv = live[::-1].copy()[None]
+    elif layout == "each_window_twice":
+        surv = np.concatenate([live, live[::-1]])[None]
+    else:
+        _, level, _ = _jax_rows(key, f, live)
+        groups = [live[level == L][:4] for L in range(td.front_k,
+                                                     td.n_stages + 1)]
+        assert all(len(g) for g in groups), [len(g) for g in groups]
+        picked = [g[i] for i in range(4) for g in groups if i < len(g)]
+        surv = np.int32(picked)[None]
+    rows = ttail.haar_tail2(s, vnf, torch.from_numpy(surv), td.table,
+                            td.front_k)
+    for b in range(surv.shape[0]):
+        jax_rows = _jax_rows(key, f, surv[b])
+        if (surv[b] < n_flat).any():
+            _hold_to_jax(rows[b], surv[b], n_flat, jax_rows, td.n_stages)
+        else:                       # the row of padding alone
+            assert not jax_rows[0].any()
+            np.testing.assert_array_equal(rows[b].numpy(), np.tile(
+                np.float32([0, 0, td.n_stages, 0]), (surv.shape[1], 1)))
+    if layout == "every_tail_stage":
+        got = set(rows[0, :, 2].numpy().astype(int).tolist())
+        assert got == set(range(td.front_k, td.n_stages + 1))
+    if layout == "each_window_twice":
+        k = len(live)
+        np.testing.assert_array_equal(rows[0, :k].numpy(),
+                                      rows[0, k:].numpy()[::-1])
+    _kernel_equals_plain(s, vnf, torch.from_numpy(surv), td.table,
+                         td.front_k, rows)

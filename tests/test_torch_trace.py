@@ -154,3 +154,27 @@ def test_counter_adds_from_many_threads_are_kept():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert trace.counters()["test.adds"] - before == n * k
+
+
+def test_launch_count_adds_its_amounts(monkeypatch):
+    """``kernels.count(wrapper, more)`` adds one launch of the wrapper and
+    each of ``more``'s amounts to its counter (tail2 adds the slots it
+    launched, ``tail2.slots``); under a CUDA graph capture, nothing."""
+    from clfacedetection_torch import kernels
+
+    def haar_tail2():
+        """A stand-in named as the wrapper."""
+
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    before = trace.counters()
+    kernels.count(haar_tail2, {"tail2.slots": 8 * 1024})
+    kernels.count(haar_tail2, {"tail2.slots": 16})
+    kernels.count(haar_tail2)
+    capturing[0] = True
+    kernels.count(haar_tail2, {"tail2.slots": 1})
+    after = trace.counters()
+    assert after["launches.haar_tail2"] - before.get(
+        "launches.haar_tail2", 0) == 3
+    assert after["tail2.slots"] - before.get("tail2.slots", 0) == 8 * 1024 + 16
