@@ -1013,13 +1013,24 @@ class ScaleCascadeDetector:
                 survivor_overflow=overflow)])[0]
 
 
-def served(frames: int, packed) -> None:
+def served(frames: int, packed, walk_caps=None) -> None:
     """Count ``frames`` frames returned to a caller, and their survivors
     and accepted windows: columns 0 and 1 of each packed readback in
-    ``packed`` (one a cascade, or a frame's rows a scale)."""
+    ``packed`` (one a cascade, or a frame's rows a scale).
+    ``walk_caps``, one entry a packed readback: the survivor cap its
+    cascade ran at where its tail is the walk (``tail_walk``), else None;
+    those cascades' survivors, accepted windows and slots (frames x cap)
+    also go to ``served.walk_*``."""
     trace.count("frames", frames)
     trace.count("survivors", sum(int(p[:, 0].sum()) for p in packed))
     trace.count("accepted", sum(int(p[:, 1].sum()) for p in packed))
+    walk = [(p, c) for p, c in zip(packed, walk_caps or ()) if c is not None]
+    if walk:
+        trace.count("served.walk_survivors",
+                    sum(int(p[:, 0].sum()) for p, _ in walk))
+        trace.count("served.walk_accepted",
+                    sum(int(p[:, 1].sum()) for p, _ in walk))
+        trace.count("served.walk_slots", sum(len(p) * c for p, c in walk))
 
 
 def grouped(results: List[DetectionResult]) -> List[DetectionResult]:

@@ -280,6 +280,8 @@ class PyramidDetector:
         self._program = None
         self.slot = 0
         self._twins: Dict[tuple, "PyramidDetector"] = {}
+        # whether the survivor tail is the walk (``tail_walk``)
+        self.walk_tail = False
         if self.n_levels == 0:
             return
 
@@ -295,6 +297,8 @@ class PyramidDetector:
                           and self.table.T == 1
                           and not self.is_tree and not c.has_tilted
                           and w0 + 1 <= 32)
+        self.walk_tail = not self.use_tail2 and strategy not in ("block",
+                                                                 "direct")
         if strategy == "direct":
             # JAX's (h0 + 1) x (w0 + 1) patch (pyramid.py:509-537)
             sten = build_stencils(self.table, h0 + 1, w0 + 1)
@@ -580,6 +584,11 @@ class PyramidDetector:
                 out.append((cand, overflow))
         return out
 
+    def walk_cap(self, cap: int) -> Optional[int]:
+        """``cap`` where the survivor tail is the walk, else None: an
+        entry of ``served``'s ``walk_caps``."""
+        return cap if self.walk_tail else None
+
     def run_regrow(self, frames: torch.Tensor,
                    ) -> List[Tuple[np.ndarray, bool]]:
         """(candidates, overflow) per frame of a [B, H, W] batch, through
@@ -590,7 +599,7 @@ class PyramidDetector:
             h = self.program(B, self.cap).run(frames)
             res = self.readback(h, self.cap)
             if not any(o for _, o in res) or self.cap >= self.n_visit:
-                served(B, [h.host["packed"]])
+                served(B, [h.host["packed"]], [self.walk_cap(self.cap)])
                 return res
             trace.count("cap.regrowths")
             self.cap = min(self.cap * 4, self.n_visit)
@@ -632,7 +641,7 @@ class PyramidDetector:
             trace.count("cap.regrowths")
             self.cap = min(self.cap * 4, self.n_visit)
             out = roc()
-        served(1, [out["packed"]])
+        served(1, [out["packed"]], [self.walk_cap(self.cap)])
         pr = out["packed_roc"][0]
         overflow = bool(pr[0] > self.cap)
         acap = (len(pr) - 2) // 4

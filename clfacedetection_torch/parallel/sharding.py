@@ -65,6 +65,6 @@ def gather_detections(out: Dict[str, torch.Tensor], det,
     packed = out["packed"].cpu().numpy()
     cap = out["surv_idx"].shape[1]
     res = det.unpack(packed, cap, lambda: out)
-    served(len(packed), [packed])
+    served(len(packed), [packed], [det.walk_cap(cap)])
     with span("host.group"):
         return grouped([finish(c, o, min_neighbors) for c, o in res])

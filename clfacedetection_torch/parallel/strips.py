@@ -178,7 +178,7 @@ class StripShardedPyramidDetector:
         # the strips again, eagerly, for the full arrays
         (cand, _), = det.unpack(out["packed"], cap,
                                 lambda: self._strips_device(frames, cap))
-        served(1, [out["packed"]])
+        served(1, [out["packed"]], [det.walk_cap(cap)])
         return cand, overflow
 
     def detect(self, gray, min_neighbors: int = 3):

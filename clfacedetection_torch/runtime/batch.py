@@ -238,7 +238,7 @@ class BatchedPyramidDetector:
                     break
                 trace.count("cap.regrowths")
                 det.cap = min(det.cap * 4, det.n_visit)
-            served(len(frames), [packed])
+            served(len(frames), [packed], [det.walk_cap(cap)])
         return _finish(res, min_neighbors)
 
     def detect_stream(self, batches, min_neighbors: int = 3,
@@ -261,7 +261,7 @@ class BatchedPyramidDetector:
         if _runs_again(packed, cap, self.det.n_visit):
             return None
         res = self.det.unpack(packed, cap, None)
-        served(len(packed), [packed])
+        served(len(packed), [packed], [self.det.walk_cap(cap)])
         return _finish(res, min_neighbors)
 
 
@@ -410,7 +410,8 @@ class MultiCascadeBatchedDetector:
 
             results[k] = _finish(det.unpack(packed[j], cap, full),
                                  min_neighbors)
-        served(len(frames), packed)
+        served(len(frames), packed, [self.subs[k].walk_cap(caps[j])
+                                     for j, k in enumerate(self._active)])
         return results
 
     def detect_stream(self, batches, min_neighbors: int = 3,

@@ -8,8 +8,10 @@ its calls, on both threads, each within the spans that enclosed it, and
 the profiler's events hold the enqueue thread's; ``frames``,
 ``candidates`` and ``boxes`` equal the results served, ``survivors``
 and ``accepted`` the packed readbacks' columns, with each frame counted
-once through a cap regrowth; the classifier's detector cache counts one
-build and then hits; one counter bumped from many threads loses no add.
+once through a cap regrowth, and ``served.walk_*`` those of the
+cascades whose tail is the walk alone; the classifier's detector cache
+counts one build and then hits; one counter bumped from many threads
+loses no add.
 """
 
 import sys
@@ -117,6 +119,57 @@ def test_counters_are_the_packed_readbacks(cap):
     assert moved.get("cap.regrowths", 0) >= (cap is not None)
     assert not any(moved.get(k) for k in moved
                    if k.startswith("launches.") or k == "program.replays")
+
+
+WALK = ("served.walk_survivors", "served.walk_accepted", "served.walk_slots")
+
+
+def _packed(det, frames):
+    """A detector's packed readback of ``frames`` at its cap now."""
+    return det._detect_device(det.put(frames), det.cap)["packed"].numpy()
+
+
+@pytest.mark.parametrize("path", ["detect", "stream"])
+@pytest.mark.parametrize("cascade,walk", [
+    ("haarcascade_frontalface_alt2", True),     # CART: the walk tail
+    ("haarcascade_frontalface_alt", False)])    # stumps: tail2
+def test_walk_counters_are_the_walk_cascades_readbacks(cascade, walk, path):
+    det = ct.BatchedPyramidDetector(ct.load_cascade(cascade), SHAPE, 2,
+                                    device="cpu", cap=4096, **KNOBS)
+    assert det.det.walk_tail == walk and det.det.use_tail2 != walk
+    batches = _batches()
+    counts = trace.counters()
+    if path == "detect":
+        for b in batches:
+            det.detect(b)
+    else:
+        list(det.detect_stream(iter(batches), 3, depth=2, threaded=True))
+    moved = _since(counts)
+    packed = np.concatenate([_packed(det.det, b) for b in batches])
+    assert moved["survivors"] == packed[:, 0].sum() > 0
+    if not walk:
+        assert not any(moved.get(k) for k in WALK)
+        return
+    assert moved["served.walk_survivors"] == packed[:, 0].sum()
+    assert moved["served.walk_accepted"] == packed[:, 1].sum() > 0
+    assert moved["served.walk_slots"] == len(packed) * det.det.cap
+
+
+def test_multi_cascade_counts_only_the_walk_cascades():
+    specs = [ct.load_cascade(n) for n in ("haarcascade_frontalface_alt",
+                                          "haarcascade_frontalface_alt2")]
+    det = ct.MultiCascadeBatchedDetector(specs, SHAPE, 2, device="cpu",
+                                         cap=4096, **KNOBS)
+    assert [s.walk_tail for s in det.subs] == [False, True]
+    frames = _batches(1)[0]
+    counts = trace.counters()
+    det.detect(frames)
+    moved = _since(counts)
+    tail2, walk = (_packed(s, frames) for s in det.subs)
+    assert moved["survivors"] == tail2[:, 0].sum() + walk[:, 0].sum()
+    assert moved["served.walk_survivors"] == walk[:, 0].sum() > 0
+    assert moved["served.walk_accepted"] == walk[:, 1].sum()
+    assert moved["served.walk_slots"] == 2 * det.subs[1].cap
 
 
 @pytest.mark.parametrize("mode", ["scale_image", "scale_cascade"])
